@@ -3,25 +3,29 @@
 
     python3 chip_smoke.py [--seed N]
 
-Run it from the root of a checkout. It builds the port's kernels from the
-checkout's sources (Triton's cache goes to ``build/triton_cache`` unless
-``TRITON_CACHE_DIR`` is set) and runs these phases in order, each printing
-its own lines; any failure exits non-zero:
+Run it from the root of a checkout. It builds the port's CUDA kernels from
+the checkout's sources (``nvcc`` into ``build/kernels/``) and runs these
+phases in order, each printing its own lines; any failure exits non-zero:
 
 1. device  -- requires CUDA; prints ``nvidia-smi``'s name and power limit.
-2. kernel  -- the ISLA modulation kernel against its plain PyTorch version
+2. build   -- one ``nvcc`` per ``layout2img_tpu_torch/csrc/*.cu``, all
+              started together; prints each kernel's registers and spills.
+3. kernel  -- the fused ISLA norm kernel against its plain PyTorch version
               on the card, at the ten (h, c) shapes of one Ours-D 128px
-              forward (b=8), for o=31 and o=8, in f32 and bf16; per shape the
-              error, the kernel's and the plain version's time (L2 flushed
-              before each launch) and the least time the card could take.
-3. slice   -- full-width ``ours_d_context128`` (ch=64, 179 classes, o=31 with
+              forward (b=8) with their real source-mask sizes, for o=31 and
+              o=8, in f32 and bf16, with sparse (box) and dense masks; per
+              shape the error, the kernel's and the plain version's time (L2
+              flushed before each launch), the time of ``x.clone()`` (the
+              floor a streaming pass over x reaches) and the least time the
+              card could take for this data.
+4. slice   -- full-width ``ours_d_context128`` (ch=64, 179 classes, o=31 with
               6 valid objects, b=8) from seeded weights, saved and reloaded
               strictly, sampled 3x in f32 and 3x in bf16 through the
               sampler; checks shape, range, 10 kernel launches per forward,
               ``obj_budget``, and one f32 batch of 2 against the CPU path.
-4. rate    -- sampler img/s at b=8 and b=128 (CUDA events, after warm-up),
+5. rate    -- sampler img/s at b=8 and b=128 (CUDA events, after warm-up),
               and the kernel-time breakdown of one forward from the profiler.
-5. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+6. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -39,10 +43,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SMI_QUERY = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
 
-# (h, c) of the ISLA norms b1, b2 of res1..res5 at 128 px, ch=64
-ISLA_SHAPES = [(4, 1024), (8, 1024), (8, 1024), (16, 512), (16, 512),
-               (32, 256), (32, 256), (64, 128), (64, 128), (128, 64)]
-ISLA_SOURCE = "layout2img_tpu_torch/ops/isla_triton.py"
+# (h, c, hs) of the ISLA norms b1, b2 of res1..res5 at 128 px, ch=64: x is
+# (b, c, h, h), its stage mask arrives at (hs, hs) and is resized to h inside
+ISLA_SHAPES = [(4, 1024, 64), (8, 1024, 64), (8, 1024, 8), (16, 512, 8), (16, 512, 16),
+               (32, 256, 16), (32, 256, 32), (64, 128, 32), (64, 128, 64), (128, 64, 64)]
+ISLA_SOURCE = "layout2img_tpu_torch/csrc/isla_norm.cu"
 ISLA_REPLACES = "layout2img_tpu/ops/pallas/isla.py:85 (tree of d0260d0^, _isla_kernel_batched)"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
@@ -88,21 +93,58 @@ def time_ms(fn, reps: int, flush=None) -> tuple[float, float, float]:
     return times[reps // 2], times[reps // 4], times[(3 * reps) // 4]
 
 
-def isla_cost(b: int, o: int, h: int, c: int, itemsize: int, dtype_name: str):
-    """(bytes, ops, bound_ms, bound_by) of one ISLA modulation call: xn read
-    and out written once, mask, gamma and beta read once; two depth-o
-    contractions, the mask sum and the affine."""
-    p = h * h
-    nbytes = itemsize * (2 * b * c * p + b * o * p + 2 * b * o * c)
-    ops = b * c * p * (4 * o + 3) + b * o * p
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype_name]
-    return nbytes, ops, 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def stage_masks(b: int, o: int, hs: int, pattern: str, g, dtype):
+    """Source stage masks (b, o, hs, hs). ``sparse`` is the main path's
+    pattern: N_VALID objects each non-zero inside one box, pad objects all
+    zero. ``dense``: every object non-zero everywhere, the most work."""
+    import torch
+
+    dev = g.device
+    if pattern == "dense":
+        return (torch.rand(b, o, hs, hs, device=dev, generator=g) + 0.01).to(dtype)
+    lo = 0.6 * torch.rand(b, N_VALID, 2, 1, device=dev, generator=g)  # box corner (y, x)
+    size = 0.1 + 0.4 * torch.rand(b, N_VALID, 2, 1, device=dev, generator=g)
+    pos = (torch.arange(hs, device=dev) + 0.5) / hs
+    inside = (pos >= lo) & (pos < lo + size)  # (b, N_VALID, 2, hs)
+    box = inside[:, :, 0, :, None] & inside[:, :, 1, None, :]
+    mask = torch.zeros(b, o, hs, hs, device=dev)
+    mask[:, :N_VALID] = torch.rand(b, N_VALID, hs, hs, device=dev, generator=g) * box
+    return mask.to(dtype)
+
+
+def isla_cost(x, mask_src, live: int, dtype_name: str):
+    """(bound_ms, bytes-bound ms, ops-bound ms) of one fused ISLA norm call on
+    this data. Bytes: x read and out written once; the source mask, gamma,
+    beta and the two f32 statistics read once. Operations: 4 per output
+    element for each object whose resized mask is non-zero at its pixel
+    (``live`` counts those (b, o, p); a zero mask needs no work), 5 per
+    output element for the BN, the affine and the ReLU, and 8 per resized
+    mask value for its 2x2 taps, the sum over objects and the fold."""
+    b, c, h, w = x.shape
+    o = mask_src.shape[1]
+    nbytes = x.element_size() * (2 * x.numel() + mask_src.numel() + 2 * b * o * c) + 2 * 4 * c
+    ops = 4 * c * live + 5 * x.numel() + 8 * b * o * h * w
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S[dtype_name]
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def build_phase() -> None:
+    from layout2img_tpu_torch.ops import _build
+
+    seconds = _build.build_all()
+    for name, s in seconds.items():
+        log = _build.library_path(name).with_suffix(".log").read_text().splitlines()
+        usage = [ln.split(":", 1)[1].strip() for ln in log if "Used" in ln and "registers" in ln]
+        spills = [ln.strip() for ln in log if "spill stores" in ln]
+        phase("build", f"csrc/{name}.cu: built in {s:.1f}s; per kernel: {usage}; {spills}")
 
 
 def kernel_phase(reps: int = 100) -> dict:
     import torch
 
-    from layout2img_tpu_torch.ops.isla import isla_modulate, isla_modulate_plain
+    from layout2img_tpu_torch.ops.interp import resize_bilinear
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_plain
 
     dev = torch.device("cuda")
     # 1 GiB: far past the 50 MB L2, and its ~0.3 ms overwrite outlasts the
@@ -110,56 +152,60 @@ def kernel_phase(reps: int = 100) -> dict:
     flush = torch.empty(2**28, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(1234)
     worst_abs, worst_rel, n_checks = 0.0, 0.0, 0
-    per_forward = {}  # dtype -> [kernel ms, plain ms, bound ms, bytes-bound ms, ops-bound ms]
+    # (dtype, o, pattern) -> [kernel, plain, bound, bytes-bound, ops-bound, x.clone() ms]
+    per_forward = {}
     for dtype, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         dname = str(dtype).removeprefix("torch.")
-        for o in (31, 8):
-            for h, c in sorted(set(ISLA_SHAPES), key=ISLA_SHAPES.index):
-                xn = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
-                mask = torch.rand(B, o, h, h, device=dev, generator=g)
-                mask[:, N_VALID:] = 0.0  # pad objects splat to all-zero masks
-                mask[:, :, : max(h // 8, 1)] = 0.0  # rows no object covers
-                mask = mask.to(dtype)
-                gamma = torch.randn(B, o, c, device=dev, generator=g).to(dtype)
-                beta = torch.randn(B, o, c, device=dev, generator=g).to(dtype)
-                args = (xn, mask, gamma, beta)
-                t0 = time.perf_counter()
-                got = isla_modulate(*args)
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-                ref = isla_modulate_plain(*args).float()
-                err = (got.float() - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                need(torch.isfinite(got.float()).all().item(), f"ISLA kernel non-finite at {h, c, o, dname}")
-                need(err <= rel_tol * scale,
-                     f"ISLA kernel off at b={B} o={o} h={h} c={c} {dname}: {err} > {rel_tol} * {scale}")
-                worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
-                n_checks += 1
-                k_ms, k_lo, k_hi = time_ms(lambda: isla_modulate(*args), reps, flush)
-                p_ms, _, _ = time_ms(lambda: isla_modulate_plain(*args), reps, flush)
-                nbytes, ops, bound_ms, bound_by = isla_cost(B, o, h, c, xn.element_size(), dname)
-                phase("kernel", f"isla {dname} b={B} o={o} h={h} c={c}: max_abs_err={err:.3e} "
-                      f"(bar {rel_tol:g}*{scale:.3g}) kernel_ms={k_ms:.5f} [{k_lo:.5f}, {k_hi:.5f}] "
-                      f"plain_ms={p_ms:.5f} "
-                      f"bound_us={1e3 * bound_ms:.3f} ({bound_by}) first_call_s={first_s:.2f}")
-                if o == O:
-                    calls = ISLA_SHAPES.count((h, c))  # calls of this shape per forward
-                    acc = per_forward.setdefault(dname, [0.0] * 5)
-                    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dname] * 1e3
-                    for i, v in enumerate((k_ms, p_ms, bound_ms, t_b, t_o)):
-                        acc[i] += calls * v
-    for dname, (k_ms, p_ms, bound_ms, _, _) in per_forward.items():
-        phase("kernel", f"isla {dname} per forward (b={B}, o={O}, ten calls): kernel_ms={k_ms:.5f} "
-              f"plain_ms={p_ms:.5f} bound_ms={bound_ms:.5f} share_of_bound={bound_ms / k_ms:.3f}")
-    k_ms, p_ms, bound_ms, t_b, t_o = per_forward["float32"]
-    return {"name": "isla_modulate", "route": "triton", "source": ISLA_SOURCE,
+        for o in (O, 8):
+            for pattern in ("sparse", "dense"):
+                for i, (h, c, hs) in enumerate(ISLA_SHAPES):
+                    relu = i % 2 == 1  # alternate, as both kinds of call are on the path
+                    x = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+                    mean = 0.5 * torch.randn(c, device=dev, generator=g)
+                    var = 0.5 + torch.rand(c, device=dev, generator=g)
+                    mask = stage_masks(B, o, hs, pattern, g, dtype)
+                    gamma = torch.randn(B, o, c, device=dev, generator=g).to(dtype)
+                    beta = torch.randn(B, o, c, device=dev, generator=g).to(dtype)
+                    args = (x, mean, var, 1e-5, mask, gamma, beta, relu)
+                    got = isla_norm(*args)
+                    torch.cuda.synchronize()
+                    ref = isla_norm_plain(*args).float()
+                    err = (got.float() - ref).abs().max().item()
+                    scale = ref.abs().max().item()
+                    where = f"b={B} o={o} h={h} c={c} hs={hs} {dname} {pattern}"
+                    need(torch.isfinite(got.float()).all().item(), f"ISLA kernel non-finite at {where}")
+                    need(err <= rel_tol * scale, f"ISLA kernel off at {where}: {err} > {rel_tol} * {scale}")
+                    worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
+                    n_checks += 1
+                    live = int((resize_bilinear(mask.float(), (h, h)) != 0).sum().item())
+                    k_ms, k_lo, k_hi = time_ms(lambda: isla_norm(*args), reps, flush)
+                    p_ms, _, _ = time_ms(lambda: isla_norm_plain(*args), reps, flush)
+                    # the floor a streaming pass over x reaches here: read x, write a copy
+                    c_ms, _, _ = time_ms(lambda: x.clone(), reps, flush)
+                    bound_ms, t_b, t_o = isla_cost(x, mask, live, dname)
+                    phase("kernel", f"isla_norm {where} relu={int(relu)}: max_abs_err={err:.3e} "
+                          f"(bar {rel_tol:g}*{scale:.3g}) kernel_ms={k_ms:.5f} [{k_lo:.5f}, {k_hi:.5f}] "
+                          f"plain_ms={p_ms:.5f} copy_ms={c_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
+                          f"({'bytes' if t_b >= t_o else 'operations'}) "
+                          f"share={bound_ms / k_ms:.3f} live_per_pixel={live / (B * h * h):.2f}")
+                    acc = per_forward.setdefault((dname, o, pattern), [0.0] * 6)
+                    for j, v in enumerate((k_ms, p_ms, bound_ms, t_b, t_o, c_ms)):
+                        acc[j] += v
+    for (dname, o, pattern), (k_ms, p_ms, bound_ms, _, _, c_ms) in per_forward.items():
+        phase("kernel", f"isla_norm {dname} o={o} {pattern} per forward (b={B}, ten calls): "
+              f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} copy_ms={c_ms:.5f} bound_ms={bound_ms:.5f} "
+              f"share_of_bound={bound_ms / k_ms:.3f}")
+    k_ms, p_ms, bound_ms, t_b, t_o, c_ms = per_forward[("float32", O, "sparse")]
+    bf = per_forward[("bfloat16", O, "sparse")]
+    return {"name": "isla_norm", "route": "cuda", "source": ISLA_SOURCE,
             "replaces": ISLA_REPLACES, "launches": None, "max_abs_err": worst_abs,
             "max_rel_err": worst_rel, "checks": n_checks,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
-            "ms_bf16": per_forward["bfloat16"][0], "plain_ms_bf16": per_forward["bfloat16"][1],
-            "bound_ms_bf16": per_forward["bfloat16"][2],
-            "timed_as": f"sum of the ten calls of one forward, b={B}, o={O}, L2 flushed"}
+            "ms_bf16": bf[0], "plain_ms_bf16": bf[1], "bound_ms_bf16": bf[2],
+            "copy_ms": c_ms, "copy_ms_bf16": bf[5],
+            "timed_as": f"sum of the ten calls of one forward, b={B}, o={O}, sparse masks, "
+                        "L2 flushed; plain = BN, resize, modulation and ReLU as separate torch ops"}
 
 
 def sync(dev) -> None:
@@ -177,7 +223,7 @@ def slice_phase(seed: int, tmp_dir: str, dev) -> tuple[int, dict]:
 
     from layout2img_tpu_torch.cli.sample import load_generator
     from layout2img_tpu_torch.data.synthetic import synthetic_layouts
-    from layout2img_tpu_torch.ops.isla import isla_modulate
+    from layout2img_tpu_torch.ops.isla import isla_norm
     from layout2img_tpu_torch.sample import cast_floating, make_sample_fn
     from layout2img_tpu_torch.utils.convert import init_generator
 
@@ -197,17 +243,17 @@ def slice_phase(seed: int, tmp_dir: str, dev) -> tuple[int, dict]:
 
     samplers = {dt: make_sample_fn(g, dtype=dt) for dt, g in gens.items()}
     rng = torch.Generator(device=dev).manual_seed(seed)
-    isla_modulate.launches = 0
+    isla_norm.launches = 0
     outs = {}
     for dt, sample in samplers.items():
         for _ in range(3):
-            before = isla_modulate.launches
+            before = isla_norm.launches
             img = sample(boxes, labels, rng)
             sync(dev)
-            need(isla_modulate.launches == before + 10,
-                 f"{isla_modulate.launches - before} ISLA launches in one forward, not 10")
+            need(isla_norm.launches == before + 10,
+                 f"{isla_norm.launches - before} ISLA launches in one forward, not 10")
             outs[dt] = img
-    launches = isla_modulate.launches
+    launches = isla_norm.launches
     for dt, img in outs.items():
         need(img.shape == (B, 3, 128, 128) and img.dtype == dt, f"bad output {img.shape} {img.dtype}")
         f = img.float()
@@ -294,9 +340,13 @@ def rate_phase(seed: int, card: str, gens: dict) -> float | None:
         return None
     rows.sort(key=lambda r: -r[1])
     isla = sum(ms for k, ms, _ in rows if "isla" in k)
+    isla_n = sum(n for k, _, n in rows if "isla" in k)
+    triton_n = sum(n for k, _, n in rows if "triton" in k.lower())
+    need(isla_n == 10, f"the profile shows {isla_n} ISLA kernels per forward, not 10")
+    need(triton_n == 0, f"the profile shows {triton_n} Triton kernels per forward")
     phase("rate", f"profile f32 b={B}: device kernel time {total:.3f} ms of {wall_ms:.3f} ms wall "
           f"per forward (traced), {sum(n for _, _, n in rows)} kernels per forward, "
-          f"ISLA kernel {isla:.4f} ms ({100 * isla / total:.1f}%)")
+          f"ISLA kernel x{isla_n} {isla:.4f} ms ({100 * isla / total:.1f}%), Triton kernels 0")
     for key, ms, n in rows[:12]:
         phase("rate", f"  {ms:8.4f} ms  {100 * ms / total:5.1f}%  x{n:<4d} {key[:90]}")
     return isla
@@ -317,7 +367,6 @@ def main(argv=None) -> int:
         phase("device", "FAIL: torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU")
         return 1
     sys.path.insert(0, ROOT)
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton_cache"))
     tmp_dir = os.path.join(ROOT, "build", "chip_smoke")
     os.makedirs(tmp_dir, exist_ok=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -329,6 +378,9 @@ def main(argv=None) -> int:
         kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         phase("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
               f"{kind} x{count}")
+        t0 = time.perf_counter()
+        build_phase()
+        phase("build", f"{time.perf_counter() - t0:.1f}s")
         row = kernel_phase()
         row["launches"], gens = slice_phase(args.seed, tmp_dir, torch.device("cuda"))
         row["ms_in_forward_traced"] = rate_phase(args.seed, card, gens)

@@ -1,7 +1,7 @@
 """Generator residual block and the PSP context head (counterpart of
 ``layout2img_tpu/nn/blocks.py``), NCHW.
 
-``GenResBlock``: (ISLA norm -> relu -> nearest 2x -> SNConv) x2 with a
+``GenResBlock``: (ISLA norm with its ReLU -> nearest 2x -> SNConv) x2 with a
 learnable 1x1 shortcut, and an optional per-stage semantic-mask head (a
 plain conv stack, or the PSP module). Submodule names are the reference's
 (``b1``, ``b2``, ``conv1``, ``conv2``, ``c_sc``, ``conv_mask.*``).
@@ -97,11 +97,11 @@ class GenResBlock(nn.Module):
 
         Returns the block output and, with a mask head, the per-class stage
         mask logits (b, num_mask_classes, h', w')."""
-        y = torch.relu(self.b1(x, vectors, mask))
+        y = self.b1(x, vectors, mask, relu=True)
         if self.upsample:
             y = upsample2x_nearest(y)
         y = self.conv1(y)
-        y = torch.relu(self.b2(y, vectors, mask))
+        y = self.b2(y, vectors, mask, relu=True)
         y = self.conv2(y)
 
         sc = x

@@ -5,7 +5,9 @@ statistics, in f32, and casts back to the input's dtype. Batch statistics
 (and their cross-GPU sync) arrive with the training path.
 
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
-mask-weighted per-object affine of ``ops.isla.isla_modulate``.
+mask-weighted per-object affine, and optionally the ReLU that follows it in
+``GenResBlock``, as one call of ``ops.isla.isla_norm`` (one kernel launch on
+the card).
 """
 
 from __future__ import annotations
@@ -14,8 +16,7 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.nn.spectral import SNDense
-from layout2img_tpu_torch.ops.interp import resize_bilinear
-from layout2img_tpu_torch.ops.isla import isla_modulate
+from layout2img_tpu_torch.ops.isla import isla_norm
 
 
 class SyncBatchNorm(nn.Module):
@@ -33,10 +34,14 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def require_eval(self) -> None:
         if self.training:
             raise NotImplementedError(
                 "batch-statistics BatchNorm arrives with the training path; call .eval()")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        self.require_eval()
+
         def chan(t: torch.Tensor) -> torch.Tensor:
             return t.to(torch.float32)[:, None, None]
 
@@ -76,10 +81,13 @@ class SpatialAdaptiveNorm(nn.Module):
         self.bias_proj = SNDense(num_w, num_features)
         self.batch_norm2d = SyncBatchNorm(num_features, affine=False)
 
-    def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """x (b, c, h, w); vectors (b, o, num_w); mask (b, o, mh, mw)."""
-        y = self.batch_norm2d(x)
-        gamma = self.weight_proj(vectors).to(y.dtype)
-        beta = self.bias_proj(vectors).to(y.dtype)
-        mask = resize_bilinear(mask, tuple(x.shape[-2:])).to(y.dtype).contiguous()
-        return isla_modulate(y, mask, gamma.contiguous(), beta.contiguous())
+    def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor,
+                relu: bool = False) -> torch.Tensor:
+        """x (b, c, h, w); vectors (b, o, num_w); mask (b, o, mh, mw) at its own
+        size (resized to x's inside); ``relu`` applies the ReLU in the same pass."""
+        bn = self.batch_norm2d
+        bn.require_eval()
+        gamma = self.weight_proj(vectors).to(x.dtype).contiguous()
+        beta = self.bias_proj(vectors).to(x.dtype).contiguous()
+        return isla_norm(x.contiguous(), bn.running_mean, bn.running_var, bn.eps,
+                         mask.to(x.dtype).contiguous(), gamma, beta, relu=relu)

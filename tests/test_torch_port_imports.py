@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports no JAX and nothing of the JAX
-package, and its entry points never fall back to the CPU on their own."""
+"""The PyTorch port stands alone: it imports no JAX, nothing of the JAX
+package and no Triton (its kernels are CUDA C++), and its entry points never
+fall back to the CPU on their own."""
 
 import os
 import subprocess
@@ -18,7 +19,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "layout2img_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "layout2img_tpu",
+                                    "triton"))
 print(len(names), bad)
 """
 
