@@ -55,11 +55,10 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "isla_common.cuh"
 
 namespace {
 
-constexpr int kMaxObjects = 64;  // live objects are tracked in one 64-bit word
-constexpr float kMaskEps = 1e-6f;
 constexpr int kBatch = 16;  // objects whose mask taps one thread loads at once
 constexpr int kMaxThreads = 128;
 
@@ -79,15 +78,6 @@ struct Params {
   int n_groups;        // channel groups per pixel tile
   int chunks_per_group;
 };
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // Four consecutive elements (16-byte aligned for f32, 8-byte for bf16) as f32.
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
@@ -123,17 +113,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Source taps of output index `dst` for F.interpolate's bilinear rule with
-// align_corners=False: half-pixel centres, negative positions clamped to 0, the
-// upper tap clamped to the last row. Weight of i1 is w1, of i0 is 1 - w1.
-__device__ __forceinline__ void src_taps(int dst, int in, float scale, int& i0, int& i1,
-                                         float& w1) {
-  const float src = fmaxf((dst + 0.5f) * scale - 0.5f, 0.0f);
-  i0 = min(static_cast<int>(src), in - 1);  // src >= 0: truncation is floor
-  i1 = min(i0 + 1, in - 1);
-  w1 = src - static_cast<float>(i0);
 }
 
 // x rows [c0, c0 + cc) x pixels [p0, p0 + tp) -> xs[cc][tp]; zeros outside x.
@@ -197,13 +176,6 @@ __device__ __forceinline__ void load_stats(const Params& p, int c, float mu[4], 
   }
 }
 
-// One element of global memory as f32 (bf16: its bits are the top half of an f32).
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
-                         << 16);
-}
-
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kMaxThreads) isla_norm_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -263,10 +235,7 @@ __global__ void __launch_bounds__(kMaxThreads) isla_norm_kernel(const Params p) 
     for (int u = 0; u < kBatch; ++u) {
       const int o = o_base + u * o_step;
       if (o < O) {
-        // rows first, then columns: the order of the plain W_y @ m @ W_x^T
-        const float r0 = (1.0f - wy) * src[u][0] + wy * src[u][2];
-        const float r1 = (1.0f - wy) * src[u][1] + wy * src[u][3];
-        const float v = (1.0f - wx) * r0 + wx * r1;
+        const float v = bilerp(src[u], wy, wx);
         mt[o * tp + q] = v;
         m_sum += v;
         if (v != 0.0f) seen |= 1ull << o;

@@ -7,6 +7,10 @@ whose ISLA norms modulate with alpha-gated stage masks (a PSP mask head on
 the penultimate block at 128 px), and a BN-relu-SNConv-tanh RGB head.
 
 Images are NCHW, (b, 3, h, w); masks (b, o, h, w); vectors (b, o, d).
+The JAX call's ``train`` flag is the module's mode here: ``.train()`` runs
+the batch-statistics BNs and the spectral-norm power iterations, ``.eval()``
+the running statistics. Its ``deterministic`` flag is the forward's
+argument of that name (False turns on the PSP head's dropout).
 Module names are the reference state-dict names, so a dict written by
 ``layout2img_tpu.cli.export_torch`` loads with ``strict=True``.
 """
@@ -86,7 +90,7 @@ class LostGANGenerator(nn.Module):
         self.final = nn.Sequential(SyncBatchNorm(ch), nn.ReLU(), SNConv(ch, output_dim, 3), nn.Tanh())
 
     def forward(self, z: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
-                z_im: torch.Tensor) -> torch.Tensor:
+                z_im: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z (b, o, z_dim); boxes (b, o, 4) xywh in [0, 1]; labels (b, o), 0 = pad;
         z_im (b, z_dim) -> images (b, 3, h, w) in [-1, 1]."""
         b = z.shape[0]
@@ -101,7 +105,7 @@ class LostGANGenerator(nn.Module):
         hard = bbox_mask(boxes, hs, hs).to(x.dtype)
         stage_bbox = bmask.to(x.dtype)
         for i in range(self.n_blocks):
-            x, smask = getattr(self, f"res{i + 1}")(x, w, stage_bbox)
+            x, smask = getattr(self, f"res{i + 1}")(x, w, stage_bbox, deterministic)
             if smask is None:
                 continue
             hh, ww = x.shape[-2:]

@@ -1,11 +1,15 @@
-"""Generator residual block and the PSP context head (counterpart of
-``layout2img_tpu/nn/blocks.py``), NCHW.
+"""Generator and discriminator residual blocks and the PSP context head
+(counterpart of ``layout2img_tpu/nn/blocks.py``), NCHW.
 
 ``GenResBlock``: (ISLA norm with its ReLU -> nearest 2x -> SNConv) x2 with a
 learnable 1x1 shortcut, and an optional per-stage semantic-mask head (a
 plain conv stack, or the PSP module). Submodule names are the reference's
 (``b1``, ``b2``, ``conv1``, ``conv2``, ``c_sc``, ``conv_mask.*``).
-The discriminator blocks wait for the training path.
+``DiscOptimizedBlock`` and ``DiscResBlock``: the discriminator's SN ResBlocks
+with 2x2 average-pool downsampling.
+
+As in the JAX package, the PSP head's Dropout2d is switched by the
+``deterministic`` argument (default True, dropout off), not by train/eval.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ class AdaptiveAvgPool(nn.Module):
 class PSPModule(nn.Module):
     """Pyramid scene parsing head (reference ``resnet_generator_app_v2.py:724-752``).
 
-    Dropout2d is inactive in eval, as in the sampler.
+    Its Dropout2d (whole channels, p=0.1) runs when ``deterministic`` is False.
     """
 
     def __init__(self, in_features: int, out_features: int = 512,
@@ -57,13 +61,14 @@ class PSPModule(nn.Module):
             nn.Conv2d(in_features + len(sizes) * out_features, out_features, 3, padding=1, bias=False),
             SyncBatchNorm(out_features),
             nn.ReLU(),
-            nn.Dropout2d(dropout_rate),
         )
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         hw = tuple(x.shape[-2:])
         priors = [resize_bilinear(stage(x), hw, align_corners=True) for stage in self.stages]
-        return self.bottleneck(torch.cat([*priors, x], dim=1))
+        y = self.bottleneck(torch.cat([*priors, x], dim=1))
+        return F.dropout2d(y, self.dropout_rate, training=not deterministic)
 
 
 class GenResBlock(nn.Module):
@@ -81,8 +86,7 @@ class GenResBlock(nn.Module):
         if not predict_mask:
             self.conv_mask = None
         elif psp_module:
-            self.conv_mask = nn.Sequential(
-                PSPModule(out_ch, 100), nn.Conv2d(100, num_mask_classes, 1))
+            self.conv_mask = nn.ModuleList([PSPModule(out_ch, 100), nn.Conv2d(100, num_mask_classes, 1)])
         else:
             self.conv_mask = nn.Sequential(
                 nn.Conv2d(out_ch, 100, 3, padding=1),
@@ -91,12 +95,13 @@ class GenResBlock(nn.Module):
                 nn.Conv2d(100, num_mask_classes, 1),
             )
 
-    def forward(self, x: torch.Tensor, vectors: torch.Tensor,
-                mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor,
+                deterministic: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
         """x (b, in_ch, h, w); vectors (b, o, num_w); mask (b, o, mh, mw).
 
         Returns the block output and, with a mask head, the per-class stage
-        mask logits (b, num_mask_classes, h', w')."""
+        mask logits (b, num_mask_classes, h', w'). ``deterministic=False``
+        turns on the PSP head's dropout."""
         y = self.b1(x, vectors, mask, relu=True)
         if self.upsample:
             y = upsample2x_nearest(y)
@@ -110,5 +115,49 @@ class GenResBlock(nn.Module):
                 sc = upsample2x_nearest(sc)
             sc = self.c_sc(sc)
         out = y + sc
-        stage_mask = None if self.conv_mask is None else self.conv_mask(out)
-        return out, stage_mask
+        if self.conv_mask is None:
+            return out, None
+        if isinstance(self.conv_mask, nn.ModuleList):  # PSP head
+            psp, conv = self.conv_mask
+            return out, conv(psp(out, deterministic))
+        return out, self.conv_mask(out)
+
+
+class DiscOptimizedBlock(nn.Module):
+    """First D block (reference ``rcnn_discriminator_app.py:294-314``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, downsample: bool = True):
+        super().__init__()
+        self.downsample = downsample
+        self.conv1 = SNConv(in_ch, out_ch, 3)
+        self.conv2 = SNConv(out_ch, out_ch, 3)
+        self.c_sc = SNConv(in_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(F.relu(self.conv1(x)))
+        sc = x
+        if self.downsample:
+            y, sc = F.avg_pool2d(y, 2), F.avg_pool2d(x, 2)
+        return y + self.c_sc(sc)
+
+
+class DiscResBlock(nn.Module):
+    """Pre-activation D ResBlock (reference ``rcnn_discriminator_app.py:317-344``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, downsample: bool = False):
+        super().__init__()
+        self.downsample = downsample
+        self.conv1 = SNConv(in_ch, out_ch, 3)
+        self.conv2 = SNConv(out_ch, out_ch, 3)
+        self.c_sc = SNConv(in_ch, out_ch, 1) if (in_ch != out_ch or downsample) else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv2(F.relu(self.conv1(F.relu(x))))
+        if self.downsample:
+            y = F.avg_pool2d(y, 2)
+        sc = x
+        if self.c_sc is not None:
+            sc = self.c_sc(sc)
+            if self.downsample:
+                sc = F.avg_pool2d(sc, 2)
+        return y + sc

@@ -1,13 +1,17 @@
 """Normalization layers (counterpart of ``layout2img_tpu/nn/norms.py``), NCHW.
 
-``SyncBatchNorm`` is eval-only in this slice: it normalizes with the running
-statistics, in f32, and casts back to the input's dtype. Batch statistics
-(and their cross-GPU sync) arrive with the training path.
+``SyncBatchNorm`` normalizes in f32 and casts back to the input's dtype. In
+eval it uses the running statistics. In training it uses the batch mean and
+the biased batch variance, ``max(E[x^2] - mean^2, 0)`` in f32 as the JAX
+package computes them, and updates the running statistics without gradient:
+momentum 0.1, the running variance unbiased by n / (n - 1), n = b*h*w. (One
+device: the cross-GPU sync waits for the multi-GPU slice.)
 
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
 mask-weighted per-object affine, and optionally the ReLU that follows it in
 ``GenResBlock``, as one call of ``ops.isla.isla_norm`` (one kernel launch on
-the card).
+the card, one more for its gradient). In training it hands the batch
+statistics to that call, and autograd carries their gradients back into x.
 """
 
 from __future__ import annotations
@@ -17,6 +21,15 @@ from torch import nn
 
 from layout2img_tpu_torch.nn.spectral import SNDense
 from layout2img_tpu_torch.ops.isla import isla_norm
+
+MOMENTUM = 0.1  # of the running statistics, as the JAX package's
+
+
+def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance of NCHW x, in f32."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=(0, 2, 3))
+    return mean, (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
 
 
 class SyncBatchNorm(nn.Module):
@@ -34,19 +47,27 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
-    def require_eval(self) -> None:
-        if self.training:
-            raise NotImplementedError(
-                "batch-statistics BatchNorm arrives with the training path; call .eval()")
+    def stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The (mean, var) to normalize x with: the running statistics in
+        eval; in training the batch statistics, after folding them into the
+        running ones."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        mean, var = batch_stats(x)
+        n = x.numel() // x.shape[1]
+        m = MOMENTUM
+        with torch.no_grad():
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * (var * (n / max(n - 1, 1))))
+            self.num_batches_tracked.add_(1)
+        return mean, var
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        self.require_eval()
-
         def chan(t: torch.Tensor) -> torch.Tensor:
             return t.to(torch.float32)[:, None, None]
 
-        y = (x.to(torch.float32) - chan(self.running_mean)) * torch.rsqrt(
-            chan(self.running_var) + self.eps)
+        mean, var = self.stats(x)
+        y = (x.to(torch.float32) - chan(mean)) * torch.rsqrt(chan(var) + self.eps)
         if self.weight is not None:
             y = y * chan(self.weight) + chan(self.bias)
         return y.to(x.dtype)
@@ -85,9 +106,9 @@ class SpatialAdaptiveNorm(nn.Module):
                 relu: bool = False) -> torch.Tensor:
         """x (b, c, h, w); vectors (b, o, num_w); mask (b, o, mh, mw) at its own
         size (resized to x's inside); ``relu`` applies the ReLU in the same pass."""
-        bn = self.batch_norm2d
-        bn.require_eval()
+        x = x.contiguous()
+        mean, var = self.batch_norm2d.stats(x)
         gamma = self.weight_proj(vectors).to(x.dtype).contiguous()
         beta = self.bias_proj(vectors).to(x.dtype).contiguous()
-        return isla_norm(x.contiguous(), bn.running_mean, bn.running_var, bn.eps,
-                         mask.to(x.dtype).contiguous(), gamma, beta, relu=relu)
+        return isla_norm(x, mean, var, self.batch_norm2d.eps, mask.to(x.dtype).contiguous(), gamma,
+                         beta, relu=relu)

@@ -7,8 +7,11 @@ from the stored ``u`` on every call, even in eval: ``v = normalize(W^T u)``,
 ``sigma = u . W v``, in f32, and the weight is cast back to its own dtype.
 ``weight_v`` is kept only so that such dicts load; it is never read.
 
-Eval only for now: the power-iteration update of ``u`` arrives with the
-training path.
+In training (``module.train()``) each call first runs one power iteration,
+``v = normalize(W^T u)``, ``u = normalize(W v)``, stores the new ``u`` in
+place, and takes ``sigma = u . W v`` with u and v detached, as the JAX
+package's ``update_stats=True`` does: so a layer called twice in one forward
+advances u twice. In eval sigma is differentiated through v.
 """
 
 from __future__ import annotations
@@ -25,6 +28,14 @@ def spectral_sigma(w_mat: torch.Tensor, u: torch.Tensor, eps: float) -> torch.Te
     return u @ (w_mat @ v)
 
 
+def power_iteration(w_mat: torch.Tensor, u: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """One power iteration from u, in f32 and without gradient: (new u, v)."""
+    with torch.no_grad():
+        w_mat = w_mat.to(torch.float32)
+        v = F.normalize(w_mat.T @ u, dim=0, eps=eps)
+        return F.normalize(w_mat @ v, dim=0, eps=eps), v
+
+
 class _SNWeight(nn.Module):
     def __init__(self, shape: tuple[int, ...], bias: bool, eps: float):
         super().__init__()
@@ -39,7 +50,15 @@ class _SNWeight(nn.Module):
 
     def normalized_weight(self) -> torch.Tensor:
         w = self.weight_orig
-        sigma = spectral_sigma(w.reshape(w.shape[0], -1), self.weight_u.to(torch.float32), self.eps)
+        w_mat = w.reshape(w.shape[0], -1)
+        if self.training:
+            u, v = power_iteration(w_mat, self.weight_u.to(torch.float32), self.eps)
+            self.weight_u.copy_(u)
+            # u is a fresh tensor: later in-place updates of weight_u leave
+            # this call's graph intact
+            sigma = u @ (w_mat.to(torch.float32) @ v)
+        else:
+            sigma = spectral_sigma(w_mat, self.weight_u.to(torch.float32), self.eps)
         return (w.to(torch.float32) / sigma).to(w.dtype)
 
 
@@ -68,3 +87,14 @@ class SNConv(_SNWeight):
         w = self.normalized_weight().to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, w, b, padding=self.padding)
+
+
+class SNEmbed(_SNWeight):
+    """spectral_norm(nn.Embedding): the (num_embeddings, dim) table divided by
+    its sigma, then indexed; eps 1e-12 as in torch's default."""
+
+    def __init__(self, num_embeddings: int, dim: int, eps: float = 1e-12):
+        super().__init__((num_embeddings, dim), False, eps)
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.normalized_weight()[idx]

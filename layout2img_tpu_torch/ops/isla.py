@@ -1,19 +1,24 @@
-"""The ISLA norm: eval BatchNorm, bilinear stage-mask resize, the mask-weighted
-per-object affine and an optional ReLU, in one kernel launch on the card.
+"""The ISLA norm: BatchNorm with given statistics, bilinear stage-mask resize,
+the mask-weighted per-object affine and an optional ReLU, in one kernel launch
+on the card, and its gradient in one more.
 
 Per pixel p and channel c, with m_o the source mask resized to x's size::
 
     y   = (x - mean_c) * rsqrt(var_c + eps)
     out = y * (sum_o m_o g_oc / (sum_o m_o + 1e-6) + 1) + sum_o m_o b_oc / (sum_o m_o + 1e-6)
 
-and ``relu(out)`` when asked. Counterparts in the JAX package: the eval
-``SyncBatchNorm`` and ``SpatialAdaptiveNorm`` of ``nn/norms.py``,
+and ``relu(out)`` when asked. mean and var are the running statistics in
+eval and the batch statistics in training (computed by the caller, which
+lets autograd carry their gradients back into x). Counterparts in the JAX
+package: ``SyncBatchNorm`` and ``SpatialAdaptiveNorm`` of ``nn/norms.py``,
 ``ops/interp.py::resize_bilinear``, the ReLU after each norm in
 ``nn/blocks.py``, and the fused Pallas kernel ``ops/pallas/isla.py::isla_modulate``
-(removed from that tree in commit d0260d0). On a CUDA tensor ``isla_norm``
-launches the hand-written kernel ``csrc/isla_norm.cu``; on a CPU tensor it runs
-``isla_norm_plain``. Forward only: the backward kernel arrives with the training
-path, and until then the CUDA path refuses inputs that need a gradient.
+with its ``custom_vjp`` backward (removed from that tree in commit d0260d0).
+
+On CUDA tensors ``isla_norm`` launches ``csrc/isla_norm.cu`` and, when autograd
+needs a gradient, ``csrc/isla_norm_bwd.cu`` through ``isla_norm_backward``. On
+CPU tensors it runs ``isla_norm_plain``, which autograd differentiates: that is
+the plain version of both kernels.
 """
 
 from __future__ import annotations
@@ -25,11 +30,13 @@ from typing import NamedTuple
 import torch
 
 from layout2img_tpu_torch.ops import _build
-from layout2img_tpu_torch.ops.interp import resize_bilinear
+from layout2img_tpu_torch.ops.interp import resize_bilinear, resize_bilinear_backward
 
 EPS = 1e-6
 MAX_OBJECTS = 64  # the kernel tracks live objects in one 64-bit word
 MAX_THREADS = 128  # threads per block, kMaxThreads in the kernel
+BWD_THREADS = 128  # threads per block of the backward, kThreads in its kernel
+BWD_SMEM_BUDGET = 200 * 1024  # shared memory bytes a backward block may take
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -48,16 +55,16 @@ def isla_modulate_plain(xn: torch.Tensor, mask: torch.Tensor, gamma: torch.Tenso
     return (xn.to(f32) * gmap + bmap).to(xn.dtype)
 
 
-def isla_norm_plain(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
-                    eps: float, mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+def isla_norm_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                    mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     relu: bool = False) -> torch.Tensor:
-    """Plain torch version, pass by pass: the eval BN apply (in f32, rounded to
-    x's dtype), ``resize_bilinear`` of the source mask to x's size, the
-    modulation, then the ReLU. The CPU path and the kernel's oracle."""
+    """Plain torch version, pass by pass: the BN apply (in f32, rounded to x's
+    dtype), ``resize_bilinear`` of the source mask to x's size, the
+    modulation, then the ReLU. The CPU path and the kernels' oracle: under
+    autograd it is also the plain version of the backward."""
     f32 = torch.float32
-    mean = running_mean.to(f32)[:, None, None]
-    rstd = torch.rsqrt(running_var.to(f32)[:, None, None] + eps)
-    y = ((x.to(f32) - mean) * rstd).to(x.dtype)
+    rstd = torch.rsqrt(var.to(f32)[:, None, None] + eps)
+    y = ((x.to(f32) - mean.to(f32)[:, None, None]) * rstd).to(x.dtype)
     mask = resize_bilinear(mask_src, tuple(x.shape[-2:]))
     out = isla_modulate_plain(y, mask, gamma, beta)
     return torch.relu(out) if relu else out
@@ -96,7 +103,51 @@ def launch_config(b: int, c: int, h: int, w: int, o: int, itemsize: int,
     return LaunchConfig(tp, threads, cc, n_tiles, groups, per_group, smem)
 
 
-def _check(x, running_mean, running_var, mask_src, gamma, beta) -> None:
+class BackwardConfig(NamedTuple):
+    tp: int  # pixels per tile (16, 32 or 64)
+    cc: int  # channels per chunk, 2048 // tp: each thread owns 4 pixels x 4 channels
+    n_tiles: int
+    tiles_per_span: int  # pixel tiles one block walks
+    n_spans: int
+    n_groups: int  # blocks that split one span's channels
+    chunks_per_group: int
+    smem_bytes: int
+
+
+def _bwd_smem_bytes(o: int, tp: int, cc: int, cg: int) -> int:
+    """Shared memory of one backward block (``smem_words`` in the kernel): the
+    folded mask tile, 1/d, U and its mask-weighted sum, gamma and beta of the
+    chunk, the two padded gradient stages, the span's per-channel and
+    per-object sums, and the live list."""
+    o4 = -(-o // 4) * 4
+    return 4 * (o * tp + tp + o4 * tp + tp + 2 * o4 * cc + 2 * cc * (tp + 1) + 2 * cg
+                + 2 * o * cg + 2 * o + 1)
+
+
+def backward_config(b: int, c: int, h: int, w: int, o: int, num_sms: int = 132) -> BackwardConfig:
+    """The backward kernel's tiling: channel groups until the grid has about
+    two blocks per SM or a group's shared sums fit the budget, then spans of
+    pixel tiles so that about four blocks per SM remain (fewer spans, smaller
+    partial sums in device memory)."""
+    p = h * w
+    tp = min(64, max(16, 1 << (p - 1).bit_length()))
+    cc = 16 * BWD_THREADS // tp
+    n_tiles = -(-p // tp)
+    n_chunks = -(-c // cc)
+    groups = min(n_chunks, max(1, -(-2 * num_sms // (b * n_tiles))))
+    while True:
+        per_group = -(-n_chunks // groups)
+        groups = -(-n_chunks // per_group)
+        smem = _bwd_smem_bytes(o, tp, cc, per_group * cc)
+        if smem <= BWD_SMEM_BUDGET or per_group == 1:
+            break
+        groups += 1
+    tiles_per_span = max(1, b * n_tiles * groups // (4 * num_sms))
+    n_spans = -(-n_tiles // tiles_per_span)
+    return BackwardConfig(tp, cc, n_tiles, tiles_per_span, n_spans, groups, per_group, smem)
+
+
+def _check(x, mean, var, mask_src, gamma, beta) -> None:
     if x.ndim != 4 or mask_src.ndim != 4 or gamma.ndim != 3 or beta.ndim != 3:
         raise ValueError("isla_norm wants x (b,c,h,w), mask_src (b,o,hs,ws), gamma/beta (b,o,c)")
     b, c = x.shape[:2]
@@ -106,15 +157,27 @@ def _check(x, running_mean, running_var, mask_src, gamma, beta) -> None:
     for name, t in (("gamma", gamma), ("beta", beta)):
         if tuple(t.shape) != (b, o, c):
             raise ValueError(f"{name} {tuple(t.shape)} is not (b, o, c) = {(b, o, c)}")
-    for name, t in (("running_mean", running_mean), ("running_var", running_var)):
+    for name, t in (("mean", mean), ("var", var)):
         if tuple(t.shape) != (c,):
             raise ValueError(f"{name} {tuple(t.shape)} is not (c,) = {(c,)}")
-    tensors = (x, running_mean, running_var, mask_src, gamma, beta)
+    tensors = (x, mean, var, mask_src, gamma, beta)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("isla_norm inputs lie on different devices")
     if len({t.dtype for t in (x, mask_src, gamma, beta)}) != 1 or x.dtype not in _DTYPES:
         raise TypeError(f"isla_norm wants x, mask_src, gamma and beta in one dtype of {_DTYPES}, "
                         f"got {[t.dtype for t in (x, mask_src, gamma, beta)]}")
+
+
+def _check_cuda(tensors, mean, var, o: int) -> None:
+    """What the kernels want beyond ``_check``."""
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("isla_norm's kernels want contiguous inputs")
+    if mean.dtype != torch.float32 or var.dtype != torch.float32:
+        raise TypeError("isla_norm's kernels want f32 statistics")
+    if not 1 <= o <= MAX_OBJECTS:
+        raise ValueError(f"isla_norm's kernels take 1..{MAX_OBJECTS} objects, got {o}")
+    if tensors[0].device.index != torch.cuda.current_device():
+        raise ValueError(f"x lies on {tensors[0].device}, not on the current device")
 
 
 @functools.cache
@@ -129,49 +192,32 @@ def _kernel():
 
 
 @functools.cache
+def _backward_kernel():
+    lib = _build.library("isla_norm_bwd")
+    fn = lib.isla_norm_backward
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
+                   i, i, i, i, p]
+    fn.restype = i
+    return lib, fn
+
+
+@functools.cache
 def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def isla_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Tensor,
-              eps: float, mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              relu: bool = False) -> torch.Tensor:
-    """Fused ISLA norm. x (b, c, h, w); running_mean, running_var (c,) f32;
-    mask_src (b, o, hs, ws), the stage mask at its own size; gamma, beta
-    (b, o, c). x, mask_src, gamma and beta share one dtype (f32 or bf16).
-
-    CUDA tensors launch the kernel (counted in ``isla_norm.launches``); it
-    wants contiguous inputs, f32 statistics and at most 64 objects, and
-    raises otherwise, or when autograd would need its backward. CPU tensors
-    run ``isla_norm_plain``."""
-    _check(x, running_mean, running_var, mask_src, gamma, beta)
-    if x.device.type == "cpu":
-        return isla_norm_plain(x, running_mean, running_var, eps, mask_src, gamma, beta, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"isla_norm has no kernel for device {x.device}")
-    tensors = (x, running_mean, running_var, mask_src, gamma, beta)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("isla_norm's CUDA kernel has no backward yet (it arrives with the "
-                           "training path); run the forward under torch.no_grad() or "
-                           "torch.inference_mode()")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("isla_norm's kernel wants contiguous inputs")
-    if running_mean.dtype != torch.float32 or running_var.dtype != torch.float32:
-        raise TypeError("isla_norm's kernel wants f32 running statistics")
+def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Tensor:
     b, c, h, w = x.shape
     o, hs, ws = mask_src.shape[1:]
-    if not 1 <= o <= MAX_OBJECTS:
-        raise ValueError(f"isla_norm's kernel takes 1..{MAX_OBJECTS} objects, got {o}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x lies on {x.device}, not on the current device")
     out = torch.empty_like(x)
     cfg = launch_config(b, c, h, w, o, x.element_size(), _num_sms(x.device.index))
     vec = 16 // x.element_size()
     aligned = (h * w) % vec == 0 and c % vec == 0 and all(
         t.data_ptr() % 16 == 0 for t in (x, gamma, beta, out))
     lib, fn = _kernel()
-    err = fn(int(x.dtype == torch.bfloat16), int(aligned), x.data_ptr(), running_mean.data_ptr(),
-             running_var.data_ptr(), mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+    err = fn(int(x.dtype == torch.bfloat16), int(aligned), x.data_ptr(), mean.data_ptr(),
+             var.data_ptr(), mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              out.data_ptr(), b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.tp, cfg.threads,
              cfg.cc, cfg.n_groups, cfg.chunks_per_group, cfg.smem_bytes,
              torch.cuda.current_stream(x.device).cuda_stream)
@@ -180,4 +226,115 @@ def isla_norm(x: torch.Tensor, running_mean: torch.Tensor, running_var: torch.Te
     return out
 
 
+class _IslaNorm(torch.autograd.Function):
+    """The fused norm under autograd on the card: the forward kernel, then
+    the backward kernel for the gradients of x, mean, var, mask_src, gamma
+    and beta. Nothing of the forward is saved but its inputs."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, mask_src, gamma, beta, eps, relu):
+        ctx.save_for_backward(x, mean, var, mask_src, gamma, beta)
+        ctx.eps, ctx.relu = eps, relu
+        return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, mean, var, mask_src, gamma, beta = ctx.saved_tensors
+        grads = isla_norm_backward(x, mean, var, ctx.eps, mask_src, gamma, beta,
+                                   grad.contiguous(), ctx.relu)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+              mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              relu: bool = False) -> torch.Tensor:
+    """Fused ISLA norm. x (b, c, h, w); mean, var (c,) f32, the running or the
+    batch statistics; mask_src (b, o, hs, ws), the stage mask at its own size;
+    gamma, beta (b, o, c). x, mask_src, gamma and beta share one dtype (f32 or
+    bf16).
+
+    CUDA tensors launch the forward kernel (counted in ``isla_norm.launches``)
+    and, under autograd, the backward kernel (``isla_norm_backward``); the
+    kernels want contiguous inputs, f32 statistics and at most 64 objects, and
+    raise otherwise. CPU tensors run ``isla_norm_plain``."""
+    _check(x, mean, var, mask_src, gamma, beta)
+    if x.device.type == "cpu":
+        return isla_norm_plain(x, mean, var, eps, mask_src, gamma, beta, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"isla_norm has no kernel for device {x.device}")
+    tensors = (x, mean, var, mask_src, gamma, beta)
+    _check_cuda(tensors, mean, var, mask_src.shape[1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _IslaNorm.apply(x, mean, var, mask_src, gamma, beta, eps, relu)
+    return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
+
+
 isla_norm.launches = 0
+
+
+def _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu=False):
+    """The backward's plain version: autograd of ``isla_norm_plain`` with
+    mean and var as inputs of their own, so the x gradient is the direct part."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, mean, var, mask_src, gamma, beta)]
+    with torch.enable_grad():
+        out = isla_norm_plain(leaves[0], leaves[1], leaves[2], eps, *leaves[3:], relu=relu)
+        return torch.autograd.grad(out, leaves, grad)
+
+
+def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: BackwardConfig):
+    """One launch of the backward kernel; returns dx_direct and the three
+    partial-sum buffers."""
+    b, c, h, w = x.shape
+    o, hs, ws = mask_src.shape[1:]
+    f32 = dict(device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    part_stats = torch.empty(b, cfg.n_spans, 2, c, **f32)
+    part_gb = torch.empty(b, cfg.n_spans, 2, o, c, **f32)
+    part_dm = torch.empty(cfg.n_groups, b, o, h * w, **f32)
+    lib, fn = _backward_kernel()
+    err = fn(int(x.dtype == torch.bfloat16), x.data_ptr(), mean.data_ptr(), var.data_ptr(),
+             mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(), grad.data_ptr(),
+             dx.data_ptr(), part_stats.data_ptr(), part_gb.data_ptr(), part_dm.data_ptr(),
+             b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.tp, cfg.tiles_per_span,
+             cfg.n_groups, cfg.chunks_per_group, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "isla_norm backward launch")
+    isla_norm_backward.launches += 1
+    return dx, part_stats, part_gb, part_dm
+
+
+def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                       mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       grad: torch.Tensor, relu: bool = False):
+    """Gradients of ``isla_norm`` given its output gradient ``grad`` (x's shape
+    and dtype): (dx_direct, dmean, dvar, dmask_src, dgamma, dbeta). dx_direct
+    is the part through y alone; autograd adds the parts through the
+    statistics. dmean and dvar are f32, the rest in their input's dtype.
+
+    CUDA tensors launch ``csrc/isla_norm_bwd.cu`` (counted in
+    ``isla_norm_backward.launches``) and sum its partial buffers in a fixed
+    order; CPU tensors run autograd of ``isla_norm_plain``."""
+    _check(x, mean, var, mask_src, gamma, beta)
+    if grad.shape != x.shape or grad.dtype != x.dtype or grad.device != x.device:
+        raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"isla_norm_backward has no kernel for device {x.device}")
+    _check_cuda((x, mean, var, mask_src, gamma, beta, grad), mean, var, mask_src.shape[1])
+    b, c, h, w = x.shape
+    o = mask_src.shape[1]
+    cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
+    dx, part_stats, part_gb, part_dm = _launch_backward(x, mean, var, eps, mask_src, gamma, beta,
+                                                        grad, relu, cfg)
+    r = torch.rsqrt(var + eps)
+    sums = part_stats.sum(dim=(0, 1))  # (2, c)
+    gb = part_gb.sum(dim=1)  # (b, 2, o, c)
+    dm = part_dm.sum(dim=0) if cfg.n_groups > 1 else part_dm[0]
+    dmask = resize_bilinear_backward(dm.view(b, o, h, w), tuple(mask_src.shape[-2:]))
+    return (dx, -r * sums[0], -0.5 * r * r * sums[1], dmask.to(mask_src.dtype),
+            gb[:, 0].to(gamma.dtype), gb[:, 1].to(beta.dtype))
+
+
+isla_norm_backward.launches = 0

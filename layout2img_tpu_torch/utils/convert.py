@@ -1,18 +1,24 @@
-"""Weights for the port's generator.
+"""Weights for the port's generator, discriminator and perceptual loss.
 
-``generator_state_dict_from_jax`` turns the JAX package's variable tree
-(``params``, ``batch_stats``, ``spectral``; numpy arrays) into the
-reference-format state dict the port's modules are named after. It is this
-package's own copy of the generator half of
-``layout2img_tpu/utils/torch_export.py``, for the Ours-D path:
+``generator_state_dict_from_jax`` and ``discriminator_state_dict_from_jax``
+turn the JAX package's variable trees (``params``, ``batch_stats``,
+``spectral``; numpy arrays) into the reference-format state dicts the port's
+modules are named after. They are this package's own copy of
+``layout2img_tpu/utils/torch_export.py``'s generator and discriminator
+exporters (Ours-D path, 128px D):
 
 - Linear kernel (in, out) -> weight (out, in); conv (kh, kw, in, out) -> (out, in, kh, kw)
 - spectral norm: ``weight_orig``, ``weight_u`` and ``weight_v = normalize(W^T u)``
 - BN stats -> ``running_mean``/``running_var`` and ``num_batches_tracked = 0``
 - alpha (n,) -> (1, n, 1); attention ``geo_proj`` Dense(64 -> h) -> h x ``WGs.{i}``
+- SN embedding table (num, dim) -> ``weight_orig`` as it is
 
-``init_generator`` gives seeded random weights where no JAX checkpoint is
-at hand (the GPU machine has no JAX).
+``vgg19_state_dict_from_jax`` is the inverse of the JAX package's
+``losses/perceptual.py::load_torch_vgg19_features``: flax ``conv{i}`` params
+-> torchvision ``features.{j}`` names.
+
+``init_generator``, ``init_discriminator`` and ``init_vgg`` give seeded random
+weights where no JAX checkpoint is at hand (the GPU machine has no JAX).
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.device import resolve_device
+from layout2img_tpu_torch.losses.perceptual import VGG19_CFG, VGG19Features
+from layout2img_tpu_torch.models.discriminators import LayoutDiscriminator, make_discriminator
 from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
 from layout2img_tpu_torch.nn.norms import SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, _SNWeight
@@ -72,6 +80,9 @@ class _Converter:
     def conv(self, name: str, path, sn: bool) -> None:
         w = _np(self._get(self.params, path)["kernel"]).transpose(3, 2, 0, 1)
         self._weight(name, path, w, sn)
+
+    def embed_sn(self, name: str, path) -> None:
+        self._sn(name, _np(self._get(self.params, path)["embedding"]), path)
 
     def bn(self, name: str, path) -> None:
         try:
@@ -146,11 +157,47 @@ def generator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v)) for k, v in e.out.items()}
 
 
+def discriminator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LayoutDiscriminator`` variables -> the port's state dict, in
+    ``export_lostgan_discriminator``'s key order."""
+    e = _Converter(variables)
+    for key in sorted(e.params):
+        if key.startswith("block") or key == "app_conv":
+            for sub in ("conv1", "conv2", "c_sc"):
+                if sub in e.params[key]:
+                    e.conv(f"{key}.{sub}", (key, sub), sn=True)
+        elif key in ("l7", "l_obj", "app"):
+            e.linear(key, (key,), sn=True)
+        elif key in ("l_y", "l_y_app"):
+            e.embed_sn(key, (key,))
+        else:
+            raise NotImplementedError(f"discriminator component {key!r} is not ported")
+    return {k: torch.from_numpy(np.array(v)) for k, v in e.out.items()}
+
+
+def vgg19_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """JAX ``VGG19Features`` params (``conv{i}``: kernel (3, 3, in, out),
+    bias) -> ``VGG19Features`` state dict (``features.{j}.weight`` (out, in,
+    3, 3), ``.bias``)."""
+    out: dict[str, torch.Tensor] = {}
+    conv, j = 0, 0  # conv ordinal, index in ``features`` (a conv and its ReLU, or a pool)
+    for item in VGG19_CFG:
+        if item == "M":
+            j += 1
+            continue
+        node = params[f"conv{conv}"]
+        out[f"features.{j}.weight"] = torch.from_numpy(_np(node["kernel"]).transpose(3, 2, 0, 1).copy())
+        out[f"features.{j}.bias"] = torch.from_numpy(_np(node["bias"]).copy())
+        conv, j = conv + 1, j + 2
+    return out
+
+
 @torch.no_grad()
 def _init_(gen: nn.Module, g: torch.Generator) -> None:
-    """Fill every parameter and buffer of a CPU generator from ``g``:
+    """Fill every parameter and buffer of a CPU module from ``g``:
     orthogonal weights as the JAX package initializes them, zero biases,
-    identity BN statistics, zero alphas, Gaussian SN vectors."""
+    identity BN statistics, zero alphas, Gaussian SN vectors, lecun-normal
+    plain convs."""
 
     def ortho(w: torch.Tensor) -> None:
         mat = torch.empty(w.shape[0], w[0].numel())
@@ -195,3 +242,22 @@ def init_generator(seed: int, num_classes: int, preset: str = "ours_d_context128
     gen = make_generator(preset, num_classes, device="cpu", **overrides)
     _init_(gen, torch.Generator().manual_seed(seed))
     return gen.to(dev)
+
+
+def init_discriminator(seed: int, num_classes: int, preset: str = "d128_app",
+                       device: str | torch.device | None = None, **overrides) -> LayoutDiscriminator:
+    """A discriminator with seeded random weights, on ``device`` (default
+    cuda), drawn on the CPU as ``init_generator`` draws them."""
+    dev = resolve_device(device)
+    disc = make_discriminator(preset, num_classes, device="cpu", **overrides)
+    _init_(disc, torch.Generator().manual_seed(seed))
+    return disc.to(dev)
+
+
+def init_vgg(seed: int, device: str | torch.device | None = None) -> VGG19Features:
+    """VGG19 features to relu5_1 with seeded random filters (lecun normal,
+    zero biases), on ``device`` (default cuda)."""
+    dev = resolve_device(device)
+    vgg = VGG19Features()
+    _init_(vgg, torch.Generator().manual_seed(seed))
+    return vgg.to(dev)

@@ -39,13 +39,17 @@ def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["make_generator", "init_generator", "resolve_device", "cli"])
+@pytest.mark.parametrize("entry", ["make_generator", "init_generator", "resolve_device", "cli",
+                                   "make_discriminator", "init_discriminator", "init_vgg",
+                                   "train_cli"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
     from layout2img_tpu_torch.cli import sample as sample_cli
+    from layout2img_tpu_torch.cli import train as train_cli
     from layout2img_tpu_torch.device import resolve_device
+    from layout2img_tpu_torch.models.discriminators import make_discriminator
     from layout2img_tpu_torch.models.generators import make_generator
-    from layout2img_tpu_torch.utils.convert import init_generator
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
 
     calls = {
         "make_generator": lambda: make_generator("ours_d_context128", 10, ch=4, num_mask_classes=10),
@@ -53,6 +57,11 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
         "resolve_device": lambda: resolve_device(),
         "cli": lambda: sample_cli.main(["--weights", str(tmp_path / "missing.pth"),
                                         "--sample_path", str(tmp_path / "out")]),
+        "make_discriminator": lambda: make_discriminator("d128_app", 10, ch=4),
+        "init_discriminator": lambda: init_discriminator(0, 10, ch=4),
+        "init_vgg": lambda: init_vgg(0),
+        "train_cli": lambda: train_cli.main(["--steps", "1", "--batch_size", "2", "--ch", "4",
+                                             "--out_path", str(tmp_path / "out")]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -75,3 +84,21 @@ def test_unported_presets_name_the_roadmap():
         make_generator("lostgan128", 10, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         make_generator("no_such_preset", 10, device="cpu")
+
+
+@pytest.mark.parametrize("knob", [dict(fused_d=True), dict(remat="gd"), dict(mixed_precision=True),
+                                  dict(ema_decay=0.999), dict(d_obj_budget=8), dict(g_obj_budget=8)])
+def test_unported_train_config_knobs_name_the_roadmap(knob):
+    from layout2img_tpu_torch.train.state import TrainConfig
+
+    TrainConfig()  # the defaults are the ported path
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrainConfig(**knob)
+
+
+def test_unported_discriminators_name_the_roadmap():
+    from layout2img_tpu_torch.models.discriminators import make_discriminator
+
+    for preset in ("d128", "d64", "d256"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_discriminator(preset, 10, device="cpu")

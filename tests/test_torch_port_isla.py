@@ -17,8 +17,8 @@ import jax.numpy as jnp
 
 from layout2img_tpu.nn.norms import SpatialAdaptiveNorm as JaxSpatialAdaptiveNorm
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm
-from layout2img_tpu_torch.ops.isla import (isla_modulate_plain, isla_norm, isla_norm_plain,
-                                           launch_config)
+from layout2img_tpu_torch.ops.isla import (backward_config, isla_modulate_plain, isla_norm,
+                                           isla_norm_plain, launch_config)
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -135,8 +135,8 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_cpu_path_is_differentiable():
-    """The plain CPU path keeps its autograd graph (the CUDA wrapper refuses
-    inputs that need a gradient until the backward kernel lands)."""
+    """The plain CPU path keeps its autograd graph (on the card the backward
+    kernel takes its place)."""
     x, mean, var, eps, mask, gamma, beta = _torch_inputs(torch.Generator().manual_seed(1), 2, 8, 8,
                                                          16, torch.float32, "cpu")
     x.requires_grad_(True)
@@ -146,10 +146,36 @@ def test_cpu_path_is_differentiable():
         assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0
 
 
-def test_norm_refuses_training_mode():
-    norm = SpatialAdaptiveNorm(16, 24).train()
-    with pytest.raises(NotImplementedError, match="training path"):
-        norm(torch.zeros(1, 16, 4, 4), torch.zeros(1, 3, 24), torch.zeros(1, 3, 8, 8))
+@pytest.mark.parametrize("relu", [False, True])
+def test_norm_training_mode_uses_batch_statistics(rng, relu):
+    """In training the norm normalizes with the batch mean and biased
+    variance and folds them into its running statistics, as the JAX norm
+    with ``use_running_average=False`` does (1e-5)."""
+    b, o, h, c = 2, 8, 8, 16
+    x, vectors, mask = _inputs(rng, b, o, h, c, n_valid=6)
+    x = x * 2 + 0.3
+    jn = JaxSpatialAdaptiveNorm()
+    variables = dict(jn.init(jax.random.PRNGKey(0), x, vectors, mask))
+    out, state = jn.apply(variables, x, vectors, mask, use_running_average=False,
+                          update_spectral=False, mutable=["batch_stats"])
+    if relu:
+        out = jax.nn.relu(out)
+    norm = SpatialAdaptiveNorm(c, 24).train()
+    with torch.no_grad():
+        for name in ("weight_proj", "bias_proj"):
+            proj = getattr(norm, name)
+            proj.weight_orig.copy_(torch.from_numpy(np.array(variables["params"][name]["kernel"]).T))
+            proj.bias.copy_(torch.from_numpy(np.array(variables["params"][name]["bias"])))
+            proj.weight_u.copy_(torch.from_numpy(np.array(variables["spectral"][name]["u"])))
+    norm.weight_proj.eval(), norm.bias_proj.eval()  # sigma from the stored u, as update_spectral=False
+    got = norm(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), torch.from_numpy(vectors),
+               torch.from_numpy(mask), relu=relu)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out).transpose(0, 3, 1, 2),
+                               atol=1e-5, rtol=0)
+    bn = norm.batch_norm2d
+    for mine, theirs in ((bn.running_mean, "mean"), (bn.running_var, "var")):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(state["batch_stats"]["bn"][theirs]),
+                                   atol=1e-5, rtol=0)
 
 
 # (b, c, h, w, o): the ten norms of one Ours-D 128px forward at b=8 and b=128,
@@ -175,3 +201,19 @@ def test_launch_config_covers_the_map(b, c, h, w, o, itemsize):
     n_chunks = -(-c // cfg.cc)
     blocks = b * cfg.n_tiles * cfg.n_groups
     assert blocks >= min(2 * 132, b * cfg.n_tiles * n_chunks) // 2, "the grid fills the card"
+
+
+@pytest.mark.parametrize("b,c,h,w,o", [(8, c, h, h, 31) for h, c in _SERVING]
+                         + [(32, c, h, h, 31) for h, c in _SERVING]
+                         + [(2, 48, 9, 13, 3), (2, 48, 9, 13, 64), (1, 200, 33, 17, 8),
+                            (128, 1024, 8, 8, 64), (1, 3, 1, 1, 64)])
+def test_backward_config_covers_the_map(b, c, h, w, o):
+    """The backward kernel's tiling: tiles cover the map, spans cover the
+    tiles, channel groups cover the channels, and a block fits the card."""
+    cfg = backward_config(b, c, h, w, o, num_sms=132)
+    assert cfg.tp in (16, 32, 64) and cfg.tp * cfg.cc == 16 * 128
+    assert (cfg.n_tiles - 1) * cfg.tp < h * w <= cfg.n_tiles * cfg.tp
+    assert (cfg.n_spans - 1) * cfg.tiles_per_span < cfg.n_tiles <= cfg.n_spans * cfg.tiles_per_span
+    covered = cfg.n_groups * cfg.chunks_per_group * cfg.cc
+    assert covered >= c and (cfg.n_groups - 1) * cfg.chunks_per_group * cfg.cc < c
+    assert cfg.smem_bytes <= SMEM_LIMIT

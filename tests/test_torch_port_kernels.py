@@ -6,17 +6,20 @@ machine that has only PyTorch and the CUDA toolkit:
 
     python -m pytest --noconftest -q tests/test_torch_port_kernels.py
 
-Bars: f32 at 1e-5 * max|plain| (the kernel and the plain version differ in
-summation order and in folding 1/d into the mask); bf16 at 1e-2 * max|plain|
-(the plain version rounds the BN output and the resized mask to bf16, the
-kernel keeps both in f32).
+Forward bars: f32 at 1e-5 * max|plain| (the kernel and the plain version
+differ in summation order and in folding 1/d into the mask); bf16 at
+1e-2 * max|plain| (the plain version rounds the BN output and the resized
+mask to bf16, the kernel keeps both in f32). The backward's bars are stated
+in its tests.
 """
 
 import pytest
 import torch
 
+from layout2img_tpu_torch.nn.norms import batch_stats
 from layout2img_tpu_torch.ops import _build
-from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_plain
+from layout2img_tpu_torch.ops.isla import (BackwardConfig, _launch_backward, isla_norm,
+                                           isla_norm_backward, isla_norm_plain)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
@@ -116,24 +119,119 @@ def test_isla_kernel_rejects_non_contiguous(cuda_device):
         isla_norm(x.transpose(2, 3), mean, var, eps, mask, gamma, beta)
 
 
+def _grads_through_stats(norm, x, mask, gamma, beta, grad, relu):
+    """Gradients of x (through y and the batch statistics), mask, gamma and
+    beta of ``norm`` with batch statistics computed from x."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, mask, gamma, beta)]
+    mean, var = batch_stats(leaves[0])
+    out = norm(leaves[0], mean, var, 1e-5, *leaves[1:], relu=relu)
+    return out, torch.autograd.grad(out, leaves, grad)
+
+
+# (b, c, (h, w), (hs, ws), o): odd sizes, few and many objects, and the shapes
+# at both ends of one Ours-D 128px forward
+BWD_SHAPES = [(2, 48, (9, 13), (5, 7), 3), (2, 48, (9, 13), (5, 7), 64), (1, 200, (33, 17), (16, 16), 8),
+              (8, 1024, (4, 4), (64, 64), 31), (8, 64, (128, 128), (64, 64), 31)]
+
+
 @pytest.mark.cuda
-def test_isla_kernel_refuses_autograd(cuda_device):
-    """No backward kernel yet: a forward that autograd would record raises
-    instead of returning a result cut off from the graph."""
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,src_hw,o", BWD_SHAPES)
+def test_isla_backward_matches_plain_autograd(cuda_device, dtype, b, c, hw, src_hw, o, relu):
+    """Every gradient of the fused norm with batch statistics, through the
+    backward kernel, against autograd of the plain version on the same
+    inputs in f32. Bars, each against max|plain| of that gradient: 1e-4 in
+    f32 (sums over up to 130k pixels in another order, and 1/d up to 1e6
+    where no object covers a pixel), 2e-2 in bf16 (x, g, masks, gamma and
+    beta rounded to bf16, dx rounded on the store). With the ReLU, the output
+    gradient is zeroed where the output is within 1e-5 of max|output| of
+    zero: there the kernel's recomputed output and the oracle's may fall on
+    opposite sides of the gate."""
+    x, _, _, _, mask, gamma, beta = _inputs(o * c + hw[0], b, o, c, hw, src_hw, dtype, cuda_device)
+    grad = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda_device, dtype)
+    if relu:
+        pre = isla_norm_plain(x.float(), *batch_stats(x), 1e-5, mask.float(),
+                              gamma.float(), beta.float())
+        grad = grad.masked_fill(pre.abs() <= 1e-5 * pre.abs().max(), 0)
+    before = (isla_norm.launches, isla_norm_backward.launches)
+    out, got = _grads_through_stats(isla_norm, x, mask, gamma, beta, grad, relu)
+    torch.cuda.synchronize()
+    assert (isla_norm.launches, isla_norm_backward.launches) == (before[0] + 1, before[1] + 1)
+    _, want = _grads_through_stats(isla_norm_plain, *(t.float() for t in (x, mask, gamma, beta, grad)),
+                                   relu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("x", "mask_src", "gamma", "beta"), got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+def test_isla_backward_is_bit_identical_run_to_run(cuda_device, relu):
+    """Partial sums reduced in a fixed order: two launches, the same bits."""
+    x, mean, var, eps, mask, gamma, beta = _inputs(3, 8, 31, 128, (64, 64), (32, 32), torch.float32,
+                                                   cuda_device)
+    grad = torch.randn_like(x)
+    first = isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad, relu)
+    second = isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad, relu)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_isla_backward_pad_objects(cuda_device):
+    """Objects with all-zero masks get exactly zero dgamma and dbeta, and
+    cutting them changes no other gradient by a bit. (Their mask gradient is
+    not zero: growing an empty mask would change the output.)"""
+    x, mean, var, eps, mask, gamma, beta = _inputs(0, 2, 31, 64, (16, 16), (8, 8), torch.float32,
+                                                   cuda_device)
+    n = 31 // 2  # the sparse pattern leaves objects n.. all zero
+    grad = torch.randn_like(x)
+    full = isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad, True)
+    cut = isla_norm_backward(x, mean, var, eps, mask[:, :n].contiguous(), gamma[:, :n].contiguous(),
+                             beta[:, :n].contiguous(), grad, True)
+    dx, dmean, dvar, dmask, dgamma, dbeta = full
+    assert dgamma[:, n:].abs().max().item() == 0.0 and dbeta[:, n:].abs().max().item() == 0.0
+    for a, b in zip((dx, dmean, dvar, dmask[:, :n], dgamma[:, :n], dbeta[:, :n]), cut):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_isla_backward_refused_launch_raises(cuda_device):
+    """A tiling whose block wants more shared memory than the card has is
+    refused by the runtime; the wrapper raises instead of returning garbage."""
+    x, mean, var, eps, mask, gamma, beta = _inputs(0, 1, 64, 2048, (4, 4), (4, 4), torch.float32,
+                                                   cuda_device)
+    cfg = BackwardConfig(tp=16, cc=128, n_tiles=1, tiles_per_span=1, n_spans=1, n_groups=1,
+                         chunks_per_group=16, smem_bytes=0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _launch_backward(x, mean, var, eps, mask, gamma, beta, torch.randn_like(x), False, cfg)
+
+
+@pytest.mark.cuda
+def test_isla_forward_under_no_grad_launches_no_backward(cuda_device):
     x, mean, var, eps, mask, gamma, beta = _inputs(0, 2, 8, 32, (8, 8), (8, 8), torch.float32,
                                                    cuda_device)
     gamma.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        isla_norm(x, mean, var, eps, mask, gamma, beta)
+    before = isla_norm_backward.launches
     with torch.no_grad():
-        isla_norm(x, mean, var, eps, mask, gamma, beta)
+        a = isla_norm(x, mean, var, eps, mask, gamma, beta)
     with torch.inference_mode():
-        isla_norm(x, mean, var, eps, mask, gamma, beta)
+        b = isla_norm(x, mean, var, eps, mask, gamma, beta)
+    c = isla_norm(x, mean, var, eps, mask, gamma, beta)
+    assert c.requires_grad and not a.requires_grad
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(c.detach(), a, rtol=0, atol=0)
+    assert isla_norm_backward.launches == before
 
 
 @pytest.mark.cuda
 def test_build_all_builds_every_source(cuda_device):
     seconds = _build.build_all()
-    assert set(seconds) == set(_build.sources()) and "isla_norm" in seconds
+    assert set(seconds) == set(_build.sources())
+    assert {"isla_norm", "isla_norm_bwd"} <= set(seconds)
     for name in seconds:
         assert _build.library_path(name).exists()
