@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``layout2img_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases build,kernel_bwd] [--reps N]
 
 Run it from the root of a checkout. It builds the port's CUDA kernels from
 the checkout's sources (``nvcc`` into ``build/kernels/``) and runs these
-phases in order, each printing its own lines; any failure exits non-zero:
+phases in order, each printing its own lines; any failure exits non-zero.
+With no arguments it runs every phase with 100 timed launches per kernel
+and shape; ``--phases`` picks some (``rate`` needs ``slice``,
+``train_rate`` needs ``train``) and ``--reps`` sets the timed launches:
 
 1. device  -- requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   -- one ``nvcc`` per ``layout2img_tpu_torch/csrc/*.cu``, all
@@ -18,30 +21,40 @@ phases in order, each printing its own lines; any failure exits non-zero:
               flushed before each launch), the time of ``x.clone()`` (the
               floor a streaming pass over x reaches) and the least time the
               card could take for this data.
-4. kernel  -- the same for the ISLA backward kernel, with batch statistics
-   (bwd)      that need a gradient: every gradient (x through the
-              statistics, the source mask, gamma, beta) against autograd of
-              the plain version, two launches compared bit for bit, and per
-              shape the function's time (the launch, the fixed-order sums of
-              its partial buffers and the transposed resize) and the launch's
-              alone, against the plain backward's and the bound.
-5. slice   -- full-width ``ours_d_context128`` (ch=64, 179 classes, o=31 with
+4. kernel_bwd -- the same for the ISLA backward, two kernels per call, with
+              batch statistics that need a gradient: every gradient (x
+              through the statistics, the source mask, gamma, beta) against
+              autograd of the plain version, the finishing kernel against
+              its plain version on the main kernel's partial buffers, two
+              calls compared bit for bit, the kernels per call counted by
+              the profiler, and per shape the function's time, the main
+              launch's and the finishing launch's alone, against the plain
+              backward's and the bounds.
+5. bwd_vg  -- the ISLA backward on masks drawn as Visual Genome layouts
+              give them (o=31: 3 to 30 objects, the ``__image__`` slot, pads),
+              through the port's public entry points alone, so that it also
+              times an earlier tree: every gradient against the plain
+              version, the function's time and the main kernel's (profiler),
+              and the live objects per tile.
+6. slice   -- full-width ``ours_d_context128`` (ch=64, 179 classes, o=31 with
               6 valid objects, b=8) from seeded weights, saved and reloaded
               strictly, sampled 3x in f32 and 3x in bf16 through the
               sampler; checks shape, range, 10 kernel launches per forward,
               ``obj_budget``, and one f32 batch of 2 against the CPU path.
-6. train   -- the same generator with ``d128_app`` (ch=64) and the VGG loss,
+7. train   -- the same generator with ``d128_app`` (ch=64) and the VGG loss,
               seeded, saved and reloaded strictly, 5 f32 train steps at b=8:
               finite losses, parameters, BN statistics and SN vectors moved,
-              10 forward and 10 backward ISLA launches per step; then one
+              10 forward ISLA launches and 10 of each backward kernel per
+              step; then one
               step on the card against the same step on the CPU at b=2 and
               b=8, with the per-layer bars of ``tests/test_torch_port_train.py``.
-7. rate    -- sampler img/s at b=8 and b=128, train-step ms and img/s at b=8
-              and b=32 (CUDA events, after warm-up) with peak memory, in f32
-              as ``cli/train.py`` runs it and, for comparison, with TF32 in
-              cuDNN and matmul; the profiler's breakdown of one sampler
-              forward and one f32 train step.
-8. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+8. rate    -- sampler img/s at b=8 and b=128 and the profiler's breakdown of
+              one sampler forward.
+9. train_rate -- train-step ms and img/s at b=8 and b=32 (CUDA events, after
+              warm-up) with peak memory, in f32 as ``cli/train.py`` runs it
+              and, for comparison, with TF32 in cuDNN and matmul; the
+              profiler's breakdown of one f32 train step.
+10. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -50,6 +63,7 @@ default keeps about three decimal digits.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -68,6 +82,7 @@ ISLA_REPLACES = "layout2img_tpu/ops/pallas/isla.py:85 (tree of d0260d0^, _isla_k
 ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
+PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -118,15 +133,29 @@ def time_ms(fn, reps: int, flush=None) -> tuple[float, float, float]:
 def stage_masks(b: int, o: int, hs: int, pattern: str, g, dtype):
     """Source stage masks (b, o, hs, hs). ``sparse`` is the main path's
     pattern: N_VALID objects each non-zero inside one box, pad objects all
-    zero. ``dense``: every object non-zero everywhere, the most work."""
+    zero. ``dense``: every object non-zero everywhere, the most work. ``vg``:
+    as ``data/vg.py`` fills o=31 slots, n ~ U[3, 30] objects (the counts
+    ``cli/preprocess_vg.py`` keeps; the dataset's own distribution is not in
+    the repository), each non-zero inside a box whose sides are U(0.1, 0.9)
+    of the canvas, then the ``__image__`` slot non-zero over the whole
+    canvas, then pad slots, all zero."""
     import torch
 
     dev = g.device
     if pattern == "dense":
         return (torch.rand(b, o, hs, hs, device=dev, generator=g) + 0.01).to(dtype)
+    pos = (torch.arange(hs, device=dev) + 0.5) / hs
+    if pattern == "vg":
+        n = torch.randint(3, 31, (b, 1), device=dev, generator=g)
+        side = 0.1 + 0.8 * torch.rand(b, o, 2, 1, device=dev, generator=g)
+        lo = (1.0 - side) * torch.rand(b, o, 2, 1, device=dev, generator=g)
+        inside = (pos >= lo) & (pos < lo + side)  # (b, o, 2, hs)
+        slot = torch.arange(o, device=dev)[None, :]
+        box = ((inside[:, :, 0, :, None] & inside[:, :, 1, None, :] & (slot < n)[..., None, None])
+               | (slot == n)[..., None, None])
+        return ((0.01 + 0.99 * torch.rand(b, o, hs, hs, device=dev, generator=g)) * box).to(dtype)
     lo = 0.6 * torch.rand(b, N_VALID, 2, 1, device=dev, generator=g)  # box corner (y, x)
     size = 0.1 + 0.4 * torch.rand(b, N_VALID, 2, 1, device=dev, generator=g)
-    pos = (torch.arange(hs, device=dev) + 0.5) / hs
     inside = (pos >= lo) & (pos < lo + size)  # (b, N_VALID, 2, hs)
     box = inside[:, :, 0, :, None] & inside[:, :, 1, None, :]
     mask = torch.zeros(b, o, hs, hs, device=dev)
@@ -274,28 +303,64 @@ def _off_gate_ties(x, mask, gamma, beta, grad):
     return grad.masked_fill(ties, 0), int(ties.sum())
 
 
-def kernel_bwd_phase(reps: int = 100) -> dict:
-    """The ISLA backward kernel against autograd of the plain version, at the
-    ten shapes of one forward; bars against max|plain| of each gradient:
-    1e-4 in f32 (sums over up to 131k pixels in another order, 1/d up to
-    1e6 where no object covers a pixel), 2e-2 in bf16 (inputs, dx and the
-    outputs rounded to bf16; the plain oracle runs in f32). With the ReLU,
-    the output gradient is zeroed at the gate's ties (``_off_gate_ties``).
-    The function's time is the wrapper's: the launch, the fixed-order sums of
-    its partial buffers and the transposed resize; the plain version is
-    autograd of ``isla_norm_plain`` from the same inputs."""
+def finish_cost(parts, outs):
+    """(bound_ms, bytes-bound ms, ops-bound ms) of one finishing launch: the
+    three f32 partial buffers and the variances read once, the five
+    gradients written once; one add per element of the buffers, and per
+    (b, o) plane 4 operations per tap of the two gather passes (at most 2 per
+    destination pixel per pass)."""
+    part_stats, part_gb, part_dm = parts
+    nbytes = sum(t.numel() * t.element_size() for t in (*parts, *outs)) + 4 * outs[0].numel()
+    ops = part_stats.numel() + part_gb.numel() + part_dm.numel() + 4 * 2 * 2 * part_dm[0].numel()
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+def device_kernels(calls: list) -> list[str]:
+    """Names of the kernels that ``calls`` run on the card, in the order they
+    ran, from one profiler session (the calls run one at a time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+            torch.cuda.synchronize()
+    return [name for _, name in sorted((e.time_range.start, e.name) for e in prof.events()
+                                       if e.device_type == torch.autograd.DeviceType.CUDA)]
+
+
+def kernel_bwd_phase(reps: int = 100) -> tuple[dict, dict]:
+    """The ISLA backward (two kernels per call) against autograd of the plain
+    version, at the ten shapes of one forward; bars against max|plain| of
+    each gradient: 1e-4 in f32 (sums over up to 131k pixels in another
+    order, 1/d up to 1e6 where no object covers a pixel), 2e-2 in bf16
+    (inputs, dx and the outputs rounded to bf16; the plain oracle runs in
+    f32). With the ReLU, the output gradient is zeroed at the gate's ties
+    (``_off_gate_ties``). The finishing kernel alone against
+    ``finish_backward_plain`` on the main kernel's partial buffers: 1e-5 of
+    max|plain| (sums of up to 688 partials per channel in another order),
+    plus 2^-8 of each value in bf16 (one rounding). The
+    function's time is the wrapper's (both launches); the plain version is
+    autograd of ``isla_norm_plain`` from the same inputs. Returns the rows
+    of the backward function and of its finishing kernel."""
     import torch
 
     from layout2img_tpu_torch.nn.norms import batch_stats
     from layout2img_tpu_torch.ops.interp import resize_bilinear
-    from layout2img_tpu_torch.ops.isla import (_launch_backward, _plain_backward, backward_config,
-                                               isla_norm, isla_norm_backward, isla_norm_plain)
+    from layout2img_tpu_torch.ops.isla import (_launch_backward, _launch_finish, _plain_backward,
+                                               backward_config, finish_backward_plain, isla_norm,
+                                               blocks_per_sm, isla_norm_backward, isla_norm_plain)
 
     dev = torch.device("cuda")
     flush = torch.empty(2**28, dtype=torch.float32, device=dev)
     g = torch.Generator(device=dev).manual_seed(4321)
-    worst_abs, worst_rel, n_checks = 0.0, 0.0, 0
-    per_forward = {}  # (dtype, o, pattern) -> [wrapper, launch, plain, bound, bytes-bound, ops-bound]
+    worst_abs, worst_rel, n_checks, fin_abs, fin_rel = 0.0, 0.0, 0, 0.0, 0.0
+    # (dtype, o, pattern) -> [function, main launch, finishing launch, plain, bound, bytes-bound,
+    # ops-bound, plain finish, finish bound, finish bytes-bound, finish ops-bound]
+    per_forward, finish_by_shape = {}, {}
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         dname = str(dtype).removeprefix("torch.")
         for o in (O, 8):
@@ -323,7 +388,7 @@ def kernel_bwd_phase(reps: int = 100) -> dict:
                         worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, err / scale)
                         errs.append(f"d{name} {err / scale:.1e}")
                     n_checks += 1
-                    # the kernel alone, at the statistics the training path gives it
+                    # the kernels alone, at the statistics the training path gives them
                     mean, var = batch_stats(x)
                     args = (x, mean, var, 1e-5, mask, gamma, beta, grad, relu)
                     first = isla_norm_backward(*args)
@@ -331,36 +396,174 @@ def kernel_bwd_phase(reps: int = 100) -> dict:
                     need(all(torch.equal(a, b) for a, b in zip(first, second)),
                          f"ISLA backward not bit-identical run to run at {where}")
                     cfg = backward_config(B, c, h, h, o)
+                    _, *parts = _launch_backward(*args, cfg)
+                    fin = _launch_finish(*parts, var, 1e-5, mask, gamma)
+                    plain_fin = finish_backward_plain(*parts, var, 1e-5, (hs, hs), (torch.float32,) * 3)
+                    for name, a, w in zip(("dmean", "dvar", "dmask", "dgamma", "dbeta"), fin, plain_fin):
+                        bf = 0.0 if a.dtype == torch.float32 else 2 ** -8
+                        scale = w.abs().max().item()
+                        off = ((a.float() - w).abs() - bf * w.abs()).max().item()
+                        need(off <= 1e-5 * scale, f"ISLA finishing kernel off in {name} at {where}: "
+                                                  f"{off} > 1e-5 * {scale}")
+                        err = (a.float() - w).abs().max().item()
+                        fin_abs, fin_rel = max(fin_abs, err), max(fin_rel, err / max(scale, 1e-30))
                     w_ms, w_lo, w_hi = time_ms(lambda: isla_norm_backward(*args), reps, flush)
                     k_ms, _, _ = time_ms(lambda: _launch_backward(*args, cfg), reps, flush)
+                    f_ms, _, _ = time_ms(lambda: _launch_finish(*parts, var, 1e-5, mask, gamma),
+                                         reps, flush)
                     p_ms, _, _ = time_ms(lambda: _plain_backward(*args), reps, flush)
+                    pf_ms, _, _ = time_ms(lambda: finish_backward_plain(
+                        *parts, var, 1e-5, (hs, hs), (dtype,) * 3), reps, flush)
                     live = int((resize_bilinear(mask.float(), (h, h)) != 0).sum().item())
                     bound_ms, t_b, t_o = isla_bwd_cost(x, mask, live, dname)
+                    f_bound, f_b, f_o = finish_cost(parts, fin)
                     phase("kernel", f"isla_norm_bwd {where}: rel_err {', '.join(errs)} (bar {rel_tol:g}) "
                           f"ms={w_ms:.5f} [{w_lo:.5f}, {w_hi:.5f}] launch_ms={k_ms:.5f} "
+                          f"finish_ms={f_ms:.5f} "
                           f"plain_ms={p_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
                           f"({'bytes' if t_b >= t_o else 'operations'}) share={bound_ms / w_ms:.3f} "
+                          f"finish_bound_us={1e3 * f_bound:.3f} threads={cfg.threads} "
+                          f"warps_per_sm="
+                          f"{blocks_per_sm(cfg.threads, cfg.smem_bytes) * cfg.threads // 32} "
                           f"spans={cfg.n_spans} groups={cfg.n_groups} smem={cfg.smem_bytes}")
-                    acc = per_forward.setdefault((dname, o, pattern), [0.0] * 6)
-                    for j, v in enumerate((w_ms, k_ms, p_ms, bound_ms, t_b, t_o)):
+                    if o == O and pattern == "sparse":
+                        finish_by_shape[(dname, h, c, hs)] = f_ms
+                    acc = per_forward.setdefault((dname, o, pattern), [0.0] * 11)
+                    for j, v in enumerate((w_ms, k_ms, f_ms, p_ms, bound_ms, t_b, t_o, pf_ms, f_bound,
+                                           f_b, f_o)):
                         acc[j] += v
-    for (dname, o, pattern), (w_ms, k_ms, p_ms, bound_ms, _, _) in per_forward.items():
+    for (dname, o, pattern), (w_ms, k_ms, f_ms, p_ms, bound_ms, *_, f_bound, _, _) in per_forward.items():
         phase("kernel", f"isla_norm_bwd {dname} o={o} {pattern} per forward (b={B}, ten calls): "
-              f"ms={w_ms:.5f} launch_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
-              f"bound_ms={bound_ms:.5f} share_of_bound={bound_ms / w_ms:.3f}")
-    w_ms, k_ms, p_ms, bound_ms, t_b, t_o = per_forward[("float32", O, "sparse")]
+              f"ms={w_ms:.5f} launch_ms={k_ms:.5f} finish_ms={f_ms:.5f} plain_ms={p_ms:.5f} "
+              f"bound_ms={bound_ms:.5f} share_of_bound={bound_ms / w_ms:.3f} "
+              f"finish_bound_ms={f_bound:.5f}")
+    # the kernels one call runs, from the profiler, at each shape in f32 and bf16 (o=31, sparse)
+    calls, labels = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for h, c, hs in ISLA_SHAPES:
+            x = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+            mask = stage_masks(B, O, hs, "sparse", g, dtype)
+            gamma, beta, grad = (torch.randn(*shape, device=dev, generator=g).to(dtype)
+                                 for shape in ((B, O, c), (B, O, c), (B, c, h, h)))
+            args = (x, *batch_stats(x), 1e-5, mask, gamma, beta, grad, True)
+            isla_norm_backward(*args)  # warm
+            calls.append(functools.partial(isla_norm_backward, *args))
+            labels.append((dtype, h, c, hs))
+    names = device_kernels(calls)
+    kinds = ["finish" if "isla_norm_bwd_finish_kernel" in n else
+             "main" if "isla_norm_bwd_kernel" in n else n for n in names]
+    need(kinds == ["main", "finish"] * len(calls),
+         f"{len(calls)} ISLA backward calls ran {len(names)} kernels, not the main and the "
+         f"finishing one each: {names[:6]}")
+    for dtype, h, c, hs in labels:
+        dname = str(dtype).removeprefix("torch.")
+        phase("kernel", f"isla_norm_bwd kernels per call (profiler) b={B} o={O} h={h} c={c} hs={hs} "
+              f"{dname} sparse: 2 (main, finishing) finish_ms={finish_by_shape[(dname, h, c, hs)]:.5f}")
+    w_ms, k_ms, f_ms, p_ms, bound_ms, t_b, t_o, pf_ms, f_bound, f_b, f_o = per_forward[
+        ("float32", O, "sparse")]
     bf = per_forward[("bfloat16", O, "sparse")]
-    return {"name": "isla_norm_bwd", "route": "cuda", "source": ISLA_BWD_SOURCE,
-            "replaces": ISLA_BWD_REPLACES, "launches": None, "max_abs_err": worst_abs,
-            "max_rel_err": worst_rel, "checks": n_checks,
-            "ms": w_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
-            "launch_ms": k_ms, "ms_bf16": bf[0], "launch_ms_bf16": bf[1], "plain_ms_bf16": bf[2],
-            "bound_ms_bf16": bf[3],
-            "timed_as": f"sum of the ten calls of one forward's backward, b={B}, o={O}, sparse "
-                        "masks, L2 flushed; ms = isla_norm_backward (the launch, the fixed-order "
-                        "sums of its partial buffers, the transposed resize), launch_ms = the "
-                        "launch alone; plain = autograd of isla_norm_plain from the same inputs"}
+    timed_as = f"sum of the ten calls of one forward's backward, b={B}, o={O}, sparse masks, L2 flushed"
+    bwd = {"name": "isla_norm_bwd", "route": "cuda", "source": ISLA_BWD_SOURCE,
+           "replaces": ISLA_BWD_REPLACES, "launches": None, "max_abs_err": worst_abs,
+           "max_rel_err": worst_rel, "checks": n_checks,
+           "ms": w_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
+           "launch_ms": k_ms, "finish_ms": f_ms, "ms_bf16": bf[0], "launch_ms_bf16": bf[1],
+           "finish_ms_bf16": bf[2], "plain_ms_bf16": bf[3], "bound_ms_bf16": bf[4],
+           "timed_as": f"{timed_as}; ms = isla_norm_backward (two launches: the main kernel and "
+                       "the finishing kernel), launch_ms = the main launch alone, finish_ms = the "
+                       "finishing launch alone; plain = autograd of isla_norm_plain from the same "
+                       "inputs"}
+    fin = {"name": "isla_norm_bwd_finish", "route": "cuda", "source": ISLA_BWD_SOURCE,
+           "replaces": ISLA_BWD_REPLACES, "launches": None, "max_abs_err": fin_abs,
+           "max_rel_err": fin_rel, "checks": n_checks,
+           "ms": f_ms, "plain_ms": pf_ms, "bound_ms": f_bound,
+           "bound_by": "bytes" if f_b >= f_o else "operations", "library_ms": None,
+           "ms_bf16": bf[2], "plain_ms_bf16": bf[7], "bound_ms_bf16": bf[8],
+           "timed_as": f"{timed_as}; the finishing launch alone on the main kernel's partial "
+                       "buffers; plain = finish_backward_plain (torch sums, the gather as "
+                       "index_select passes)"}
+    return bwd, fin
+
+
+def bwd_vg_phase(reps: int = 100) -> dict:
+    """The ISLA backward on Visual Genome traffic (``stage_masks`` pattern
+    ``vg``) through the port's public entry points alone (``isla_norm``,
+    ``isla_norm_backward``, ``isla_norm_plain``, ``batch_stats``), so that the
+    phase also times an earlier tree of the port. At the ten shapes of one
+    forward (b=8, o=31), in f32 and bf16: every gradient against autograd of
+    the plain version at kernel_bwd's bars, the function's time (L2 flushed),
+    the main kernel's device time from the profiler (the median of the
+    kernels it saw in reps // 10 calls, L2 flushed before each), the bound, and the live objects per
+    64-pixel tile. Returns {dtype name: [function ms, main kernel ms, bound
+    ms]}, each summed over the ten calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from layout2img_tpu_torch.nn.norms import batch_stats
+    from layout2img_tpu_torch.ops.interp import resize_bilinear
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward, isla_norm_plain
+
+    dev = torch.device("cuda")
+    flush = torch.empty(2**28, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2468)
+    per_forward = {}
+    for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        dname = str(dtype).removeprefix("torch.")
+        for i, (h, c, hs) in enumerate(ISLA_SHAPES):
+            relu = i % 2 == 1
+            x = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+            mask = stage_masks(B, O, hs, "vg", g, dtype)
+            gamma, beta = (torch.randn(B, O, c, device=dev, generator=g).to(dtype) for _ in range(2))
+            grad = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+            where = f"b={B} o={O} h={h} c={c} hs={hs} {dname} vg relu={int(relu)}"
+            grad, _ = _off_gate_ties(x, mask, gamma, beta, grad) if relu else (grad, 0)
+            got = _isla_grads(isla_norm, x, mask, gamma, beta, grad, relu)
+            torch.cuda.synchronize()
+            want = _isla_grads(isla_norm_plain, *(t.float() for t in (x, mask, gamma, beta, grad)),
+                               relu)
+            errs = []
+            for name, a, w in zip(("x", "mask_src", "gamma", "beta"), got, want):
+                err, scale = (a.float() - w).abs().max().item(), w.abs().max().item()
+                need(a.dtype == dtype and torch.isfinite(a.float()).all().item()
+                     and err <= rel_tol * scale,
+                     f"ISLA backward off in d{name} at {where}: {err} > {rel_tol} * {scale}")
+                errs.append(f"d{name} {err / scale:.1e}")
+            args = (x, *batch_stats(x), 1e-5, mask, gamma, beta, grad, relu)
+            w_ms, w_lo, w_hi = time_ms(lambda: isla_norm_backward(*args), reps, flush)
+            n_prof = max(5, reps // 10)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_prof):
+                    flush.zero_()
+                    isla_norm_backward(*args)
+                torch.cuda.synchronize()
+            main_us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA
+                             and "isla_norm_bwd_kernel" in e.name)
+            # the profiler has dropped some kernels of a run of calls on the card: the median
+            # of those it saw, and a failure only when it saw none
+            need(len(main_us) > 0, f"the profiler saw no main ISLA backward kernel in {n_prof} "
+                                   f"calls at {where}")
+            k_ms = main_us[len(main_us) // 2] / 1e3
+            resized = resize_bilinear(mask.float(), (h, h)).flatten(2)  # (b, o, p)
+            tp = min(64, h * h)
+            tiles = torch.nn.functional.pad(resized, (0, -resized.shape[-1] % tp)).view(B, O, -1, tp)
+            live_tile = (tiles != 0).any(-1).sum(1).float()  # (b, tiles)
+            bound_ms, _, _ = isla_bwd_cost(x, mask, int((resized != 0).sum().item()), dname)
+            phase("bwd_vg", f"isla_norm_bwd {where}: rel_err {', '.join(errs)} (bar {rel_tol:g}) "
+                  f"ms={w_ms:.5f} [{w_lo:.5f}, {w_hi:.5f}] main_kernel_ms={k_ms:.5f} "
+                  f"(profiled {len(main_us)}/{n_prof}) bound_us={1e3 * bound_ms:.3f} "
+                  f"live_per_tile mean={live_tile.mean().item():.2f} "
+                  f"max={int(live_tile.max().item())}")
+            acc = per_forward.setdefault(dname, [0.0, 0.0, 0.0])
+            for j, v in enumerate((w_ms, k_ms, bound_ms)):
+                acc[j] += v
+    for dname, (w_ms, k_ms, bound_ms) in per_forward.items():
+        phase("bwd_vg", f"isla_norm_bwd {dname} o={O} vg per forward (b={B}, ten calls): "
+              f"ms={w_ms:.5f} main_kernel_ms={k_ms:.5f} bound_ms={bound_ms:.5f} "
+              f"share_of_bound={bound_ms / w_ms:.3f}")
+    return per_forward
 
 
 def sync(dev) -> None:
@@ -626,9 +829,10 @@ def card_vs_cpu(seed: int, paths: dict, dev, b: int) -> None:
     phase("train", _grad_report("G", g_card["G"], g_cpu["G"], b))
 
 
-def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int], dict]:
-    """Drive the train step at full width; returns the ISLA forward and
-    backward launches of its TRAIN_STEPS steps and the saved weights' paths."""
+def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dict]:
+    """Drive the train step at full width; returns the launches of the ISLA
+    forward kernel and of the backward's main and finishing kernels in its
+    TRAIN_STEPS steps, and the saved weights' paths."""
     import numpy as np
     import torch
 
@@ -650,20 +854,23 @@ def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int], dict]:
     batches = [_train_batch(data_rng, B, dev) for _ in range(TRAIN_STEPS)]
     rng = torch.Generator(device=dev).manual_seed(seed)
 
-    isla_norm.launches = isla_norm_backward.launches = 0
+    isla_norm.launches = isla_norm_backward.launches = isla_norm_backward.finish_launches = 0
     for i, batch in enumerate(batches):
-        f0, b0 = isla_norm.launches, isla_norm_backward.launches
+        f0, b0, n0 = isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches
         metrics = step(batch, rng)
         sync(dev)
         fwd, bwd = isla_norm.launches - f0, isla_norm_backward.launches - b0
-        need((fwd, bwd) == (10, 10), f"train step {i + 1}: {fwd} ISLA forward and {bwd} backward "
-                                     "launches, not 10 and 10")
+        fin = isla_norm_backward.finish_launches - n0
+        need((fwd, bwd, fin) == (10, 10, 10),
+             f"train step {i + 1}: {fwd} ISLA forward, {bwd} backward and {fin} finishing launches, "
+             "not 10 each")
         values = {k: v.item() for k, v in metrics.items()}
         need(all(np.isfinite(v) for v in values.values()), f"train step {i + 1}: non-finite {values}")
         phase("train", f"f32 b={B} step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in values.items()))
-    launches = (isla_norm.launches, isla_norm_backward.launches)
-    phase("train", f"main path ran the ISLA forward kernel {launches[0]} times and the backward "
-          f"kernel {launches[1]} times ({TRAIN_STEPS} steps, 10 each per step)")
+    launches = (isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches)
+    phase("train", f"main path ran the ISLA forward kernel {launches[0]} times, the backward's "
+          f"main kernel {launches[1]} times and its finishing kernel {launches[2]} times "
+          f"({TRAIN_STEPS} steps, 10 each per step)")
 
     after = {f"G.{k}": v for k, v in gen.state_dict().items()}
     after |= {f"D.{k}": v for k, v in disc.state_dict().items()}
@@ -688,10 +895,11 @@ def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int], dict]:
     return launches, paths
 
 
-def train_rate_phase(seed: int, card: str, paths: dict) -> tuple[float | None, float | None]:
+def train_rate_phase(seed: int, card: str, paths: dict) -> tuple[float | None, ...]:
     """Train-step rates at b=8 and b=32, in f32 (as ``cli/train.py`` runs
     it) and with TF32 in cuDNN and matmul, then a profiled f32 b=8 step;
-    returns the ISLA forward and backward kernels' device ms in that step."""
+    returns the device ms of the ISLA forward kernel and of the backward's
+    main and finishing kernels in that step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -732,27 +940,41 @@ def train_rate_phase(seed: int, card: str, paths: dict) -> tuple[float | None, f
     total = sum(ms for _, ms, _ in rows)
     if total <= 0:
         phase("rate", "train profile: the profiler saw no device time; breakdown not measured")
-        return None, None
+        return None, None, None
     rows.sort(key=lambda r: -r[1])
     fwd = [(ms, n) for k, ms, n in rows if "isla_norm_kernel" in k]
     bwd = [(ms, n) for k, ms, n in rows if "isla_norm_bwd_kernel" in k]
+    fin = [(ms, n) for k, ms, n in rows if "isla_norm_bwd_finish_kernel" in k]
     f_ms, f_n = sum(ms for ms, _ in fwd), sum(n for _, n in fwd)
     b_ms, b_n = sum(ms for ms, _ in bwd), sum(n for _, n in bwd)
-    need((f_n, b_n) == (10, 10), f"the train profile shows {f_n} ISLA forward and {b_n} backward "
-                                 "kernels per step, not 10 and 10")
+    n_ms, n_n = sum(ms for ms, _ in fin), sum(n for _, n in fin)
+    need((f_n, b_n, n_n) == (10, 10, 10),
+         f"the train profile shows {f_n} ISLA forward, {b_n} backward and {n_n} finishing kernels "
+         "per step, not 10 each")
     phase("rate", f"train profile f32 b={B}: device kernel time {total:.3f} ms of {wall_ms:.3f} ms "
           f"wall per step (traced), {sum(n for _, _, n in rows)} kernels per step, ISLA forward x{f_n} "
           f"{f_ms:.4f} ms ({100 * f_ms / total:.1f}%), ISLA backward x{b_n} {b_ms:.4f} ms "
-          f"({100 * b_ms / total:.1f}%) on {card}")
+          f"({100 * b_ms / total:.1f}%) and its finishing kernel x{n_n} {n_ms:.4f} ms "
+          f"({100 * n_ms / total:.1f}%) on {card}")
     for key, ms, n in rows[:15]:
         phase("rate", f"  {ms:8.4f} ms  {100 * ms / total:5.1f}%  x{n:<4d} {key[:90]}")
-    return f_ms, b_ms
+    return f_ms, b_ms, n_ms
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated phases to run, of {','.join(PHASES)} (default: all)")
+    ap.add_argument("--reps", type=int, default=100,
+                    help="timed launches per kernel and shape in the kernel phases (default 100)")
     args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or ("rate" in phases and "slice" not in phases) or (
+            "train_rate" in phases and "train" not in phases):
+        ap.error(f"--phases {args.phases}: phases are {','.join(PHASES)}; rate needs slice and "
+                 "train_rate needs train")
 
     if not os.path.isdir(os.path.join(ROOT, "layout2img_tpu_torch")):
         phase("device", f"FAIL: no layout2img_tpu_torch package beside {os.path.basename(__file__)}; "
@@ -770,29 +992,45 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t_start = time.perf_counter()
+    rows = {}
     try:
         card = gpu_line()
         kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
         phase("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
               f"{kind} x{count}")
-        t0 = time.perf_counter()
-        build_phase()
-        phase("build", f"{time.perf_counter() - t0:.1f}s")
-        row = kernel_phase()
-        bwd_row = kernel_bwd_phase()
-        row["launches"], gens = slice_phase(args.seed, tmp_dir, torch.device("cuda"))
-        (row["launches_train"], bwd_row["launches"]), paths = train_phase(args.seed, tmp_dir,
-                                                                         torch.device("cuda"))
-        bwd_row["launches_train"] = bwd_row["launches"]
-        row["ms_in_forward_traced"] = rate_phase(args.seed, card, gens)
-        del gens
-        row["ms_in_step_traced"], bwd_row["ms_in_step_traced"] = train_rate_phase(args.seed, card,
-                                                                                  paths)
+        dev = torch.device("cuda")
+        if "build" in phases:
+            t0 = time.perf_counter()
+            build_phase()
+            phase("build", f"{time.perf_counter() - t0:.1f}s")
+        if "kernel" in phases:
+            rows["isla_norm"] = kernel_phase(args.reps)
+        if "kernel_bwd" in phases:
+            rows["isla_norm_bwd"], rows["isla_norm_bwd_finish"] = kernel_bwd_phase(args.reps)
+        if "bwd_vg" in phases:
+            vg = bwd_vg_phase(args.reps)
+            if "isla_norm_bwd" in rows:
+                rows["isla_norm_bwd"].update(
+                    ms_vg=vg["float32"][0], main_kernel_ms_vg=vg["float32"][1],
+                    ms_vg_bf16=vg["bfloat16"][0], main_kernel_ms_vg_bf16=vg["bfloat16"][1])
+        fwd, bwd, fin = (rows.get(k, {}) for k in ("isla_norm", "isla_norm_bwd", "isla_norm_bwd_finish"))
+        if "slice" in phases:
+            fwd["launches"], gens = slice_phase(args.seed, tmp_dir, dev)
+        if "train" in phases:
+            (fwd["launches_train"], bwd["launches"], fin["launches"]), paths = train_phase(
+                args.seed, tmp_dir, dev)
+            bwd["launches_train"], fin["launches_train"] = bwd["launches"], fin["launches"]
+        if "rate" in phases:
+            fwd["ms_in_forward_traced"] = rate_phase(args.seed, card, gens)
+            del gens
+        if "train_rate" in phases:
+            (fwd["ms_in_step_traced"], bwd["ms_in_step_traced"],
+             fin["ms_in_step_traced"]) = train_rate_phase(args.seed, card, paths)
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1
     phase("done", f"{time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": [row, bwd_row]}))
+    print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0

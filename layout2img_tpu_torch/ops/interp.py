@@ -66,17 +66,6 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *, align_corners: 
     return wy @ x @ wx.T
 
 
-def resize_bilinear_backward(g: torch.Tensor, in_hw: tuple[int, int]) -> torch.Tensor:
-    """The transpose of ``resize_bilinear`` (align_corners=False): the gradient
-    ``W_y^T @ g @ W_x`` on the input grid ``in_hw`` of the output gradient g."""
-    (h_out, w_out), (h_in, w_in) = g.shape[-2:], in_hw
-    if (h_in, w_in) == (h_out, w_out):
-        return g
-    wy = _resize_matrix(h_out, h_in, False, g.dtype, g.device)
-    wx = _resize_matrix(w_out, w_in, False, g.dtype, g.device)
-    return wy.T @ g @ wx
-
-
 @functools.cache
 def _nearest_index(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
     """torch 'nearest' source index: ``floor(dst * in / out)``."""

@@ -1,6 +1,6 @@
 """The ISLA norm: BatchNorm with given statistics, bilinear stage-mask resize,
 the mask-weighted per-object affine and an optional ReLU, in one kernel launch
-on the card, and its gradient in one more.
+on the card, and its gradient in two more.
 
 Per pixel p and channel c, with m_o the source mask resized to x's size::
 
@@ -27,16 +27,18 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from layout2img_tpu_torch.ops import _build
-from layout2img_tpu_torch.ops.interp import resize_bilinear, resize_bilinear_backward
+from layout2img_tpu_torch.ops.interp import resize_bilinear
 
 EPS = 1e-6
 MAX_OBJECTS = 64  # the kernel tracks live objects in one 64-bit word
 MAX_THREADS = 128  # threads per block, kMaxThreads in the kernel
-BWD_THREADS = 128  # threads per block of the backward, kThreads in its kernel
-BWD_SMEM_BUDGET = 200 * 1024  # shared memory bytes a backward block may take
+BWD_THREADS = 256  # most threads per block of the backward, kThreads in its kernel
+SMEM_PER_SM = 228 * 1024  # shared memory of one Hopper SM
+BWD_SMEM_BUDGET = SMEM_PER_SM // 4 - 1024  # shared memory bytes a backward block may take
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -104,47 +106,84 @@ def launch_config(b: int, c: int, h: int, w: int, o: int, itemsize: int,
 
 
 class BackwardConfig(NamedTuple):
+    threads: int  # threads per block: 256, or 128 or 64 where the map is tiny
     tp: int  # pixels per tile (16, 32 or 64)
-    cc: int  # channels per chunk, 2048 // tp: each thread owns 4 pixels x 4 channels
+    cc: int  # channels per chunk, 8 * threads // tp: each thread owns 4 pixels x 2 channels
     n_tiles: int
     tiles_per_span: int  # pixel tiles one block walks
     n_spans: int
     n_groups: int  # blocks that split one span's channels
     chunks_per_group: int
+    ksplit: int  # threads that split the channels of one 4 x 4 block of U
     smem_bytes: int
 
 
-def _bwd_smem_bytes(o: int, tp: int, cc: int, cg: int) -> int:
+def _bwd_smem_bytes(o: int, tp: int, cc: int, cg: int, threads: int) -> int:
     """Shared memory of one backward block (``smem_words`` in the kernel): the
-    folded mask tile, 1/d, U and its mask-weighted sum, gamma and beta of the
-    chunk, the two padded gradient stages, the span's per-channel and
-    per-object sums, and the live list."""
+    two padded gradient stages, gamma and beta of the chunk transposed, the
+    folded mask tile, 1/d, the mask-weighted sum of U, the per-thread mask
+    sums, the warps' live words, the live list, and the span's per-channel
+    and per-object sums."""
     o4 = -(-o // 4) * 4
-    return 4 * (o * tp + tp + o4 * tp + tp + 2 * o4 * cc + 2 * cc * (tp + 1) + 2 * cg
-                + 2 * o * cg + 2 * o + 1)
+    return 4 * (2 * cc * (tp + 4) + 2 * cc * (o4 + 4) + o * tp + 2 * tp + threads + 16 + 64
+                + 2 * cg + 2 * o * cg)
+
+
+def blocks_per_sm(threads: int, smem_bytes: int) -> int:
+    """Blocks of the backward kernel one Hopper SM holds at once: 32 blocks,
+    2048 threads, and 228 KB of shared memory of which each block also takes 1 KB
+    (registers are capped by the kernel's launch bounds to fit four blocks
+    of 256 threads)."""
+    return min(32, 2048 // threads, SMEM_PER_SM // (smem_bytes + 1024))
+
+
+def slot_bucket(o: int) -> int:
+    """The slot count the backward's tiling is chosen for: o rounded up to 8
+    (COCO's layouts), 32 (Visual Genome's 31) or 64 (the most the kernels
+    take)."""
+    return next(s for s in (8, 32, MAX_OBJECTS) if o <= s)
 
 
 def backward_config(b: int, c: int, h: int, w: int, o: int, num_sms: int = 132) -> BackwardConfig:
-    """The backward kernel's tiling: channel groups until the grid has about
-    two blocks per SM or a group's shared sums fit the budget, then spans of
-    pixel tiles so that about four blocks per SM remain (fewer spans, smaller
-    partial sums in device memory)."""
+    """The backward kernel's tiling. Blocks of 256 threads, halved (to 64 at
+    least) while the grid would not give every SM a block or a one-chunk
+    block would not fit the budget (four blocks per SM); channel groups until
+    the grid has about two blocks per SM and a group's shared sums fit the
+    budget; then spans of pixel tiles: the fewest tiles per block that let
+    the whole grid be resident at once, four blocks per SM (no second wave;
+    fewer spans, smaller partial sums in device memory). U's
+    channels are split over as many threads as the blocks of U leave room
+    for (ksplit). Every choice is made for ``slot_bucket(o)`` slots, not for
+    o: the tiling fixes the order of every sum, so pad slots within a bucket
+    change no bit of the other gradients (``smem_bytes`` is o's own)."""
     p = h * w
     tp = min(64, max(16, 1 << (p - 1).bit_length()))
-    cc = 16 * BWD_THREADS // tp
+    slots = slot_bucket(o)
     n_tiles = -(-p // tp)
+    fewest = max(64, tp, slots * tp // 16)  # a thread per mask pixel and per 4 x 4 block of U
+    threads = BWD_THREADS
+    while threads // 2 >= fewest:
+        cc = 8 * threads // tp
+        if (b * n_tiles * -(-c // cc) >= num_sms
+                and _bwd_smem_bytes(slots, tp, cc, cc, threads) <= BWD_SMEM_BUDGET):
+            break
+        threads //= 2
+    cc = 8 * threads // tp
     n_chunks = -(-c // cc)
     groups = min(n_chunks, max(1, -(-2 * num_sms // (b * n_tiles))))
-    while True:
-        per_group = -(-n_chunks // groups)
-        groups = -(-n_chunks // per_group)
-        smem = _bwd_smem_bytes(o, tp, cc, per_group * cc)
-        if smem <= BWD_SMEM_BUDGET or per_group == 1:
-            break
-        groups += 1
-    tiles_per_span = max(1, b * n_tiles * groups // (4 * num_sms))
+    per_group = -(-n_chunks // groups)
+    while per_group > 1 and _bwd_smem_bytes(slots, tp, cc, per_group * cc,
+                                            threads) > BWD_SMEM_BUDGET:
+        per_group -= 1
+    groups = -(-n_chunks // per_group)
+    smem = _bwd_smem_bytes(o, tp, cc, per_group * cc, threads)
+    tiles_per_span = -(-b * n_tiles * groups // (4 * num_sms))
     n_spans = -(-n_tiles // tiles_per_span)
-    return BackwardConfig(tp, cc, n_tiles, tiles_per_span, n_spans, groups, per_group, smem)
+    ksplit = 1
+    while 2 * ksplit * (slots // 4) * (tp // 4) <= threads:
+        ksplit *= 2
+    return BackwardConfig(threads, tp, cc, n_tiles, tiles_per_span, n_spans, groups, per_group,
+                          ksplit, smem)
 
 
 def _check(x, mean, var, mask_src, gamma, beta) -> None:
@@ -196,8 +235,18 @@ def _backward_kernel():
     lib = _build.library("isla_norm_bwd")
     fn = lib.isla_norm_backward
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
-                   i, i, i, i, p]
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
+                   i, i, i, i, i, i, p]
+    fn.restype = i
+    return lib, fn
+
+
+@functools.cache
+def _finish_kernel():
+    lib = _build.library("isla_norm_bwd")
+    fn = lib.isla_norm_backward_finish
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
     fn.restype = i
     return lib, fn
 
@@ -228,8 +277,8 @@ def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Ten
 
 class _IslaNorm(torch.autograd.Function):
     """The fused norm under autograd on the card: the forward kernel, then
-    the backward kernel for the gradients of x, mean, var, mask_src, gamma
-    and beta. Nothing of the forward is saved but its inputs."""
+    the backward's two kernels for the gradients of x, mean, var, mask_src,
+    gamma and beta. Nothing of the forward is saved but its inputs."""
 
     @staticmethod
     def forward(ctx, x, mean, var, mask_src, gamma, beta, eps, relu):
@@ -255,7 +304,7 @@ def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
     bf16).
 
     CUDA tensors launch the forward kernel (counted in ``isla_norm.launches``)
-    and, under autograd, the backward kernel (``isla_norm_backward``); the
+    and, under autograd, the backward's two kernels (``isla_norm_backward``); the
     kernels want contiguous inputs, f32 statistics and at most 64 objects, and
     raise otherwise. CPU tensors run ``isla_norm_plain``."""
     _check(x, mean, var, mask_src, gamma, beta)
@@ -282,6 +331,69 @@ def _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu=False):
         return torch.autograd.grad(out, leaves, grad)
 
 
+@functools.cache
+def _transposed_taps(out_size: int, in_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transposed 2-tap resize as a gather: for each source index s, the
+    destination indices whose taps reach it, in ascending order, and the
+    weight each reads s with, padded to one width with index 0 and weight 0.
+    Taps and weights in f32 as ``csrc/isla_common.cuh::src_taps`` computes
+    them (half-pixel centres, clamped at both ends)."""
+    scale = np.float32(in_size) / np.float32(out_size)
+    src = np.maximum((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * scale
+                     - np.float32(0.5), np.float32(0.0))
+    i0 = np.minimum(src.astype(np.int64), in_size - 1)
+    i1 = np.minimum(i0 + 1, in_size - 1)
+    w1 = src - i0.astype(np.float32)
+    reach = [np.flatnonzero((i0 <= s) & (s <= i1)) for s in range(in_size)]
+    width = max(1, max(len(d) for d in reach))
+    idx = np.zeros((in_size, width), np.int64)
+    wgt = np.zeros((in_size, width), np.float32)
+    for s, dst in enumerate(reach):
+        idx[s, :len(dst)] = dst
+        wgt[s, :len(dst)] = (np.where(i0[dst] == s, np.float32(1.0) - w1[dst], np.float32(0.0))
+                             + np.where(i1[dst] == s, w1[dst], np.float32(0.0)))
+    return torch.from_numpy(idx), torch.from_numpy(wgt)
+
+
+def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int]) -> torch.Tensor:
+    """The transpose of the 2-tap bilinear resize (``ops/interp.py::
+    resize_bilinear``, align_corners=False) of dm (..., h, w) onto the source
+    grid ``src_hw``, as the finishing kernel computes it: rows first (each
+    source row sums the destination rows that reach it, in ascending
+    order), then columns. f32."""
+    h, w = dm.shape[-2:]
+    out = dm.float()
+    for dim, (n_out, n_in) in ((-2, (h, src_hw[0])), (-1, (w, src_hw[1]))):
+        idx, wgt = (t.to(dm.device) for t in _transposed_taps(n_out, n_in))
+        shape = [1] * out.ndim
+        shape[dim] = n_in
+        acc = torch.zeros((*out.shape[:dim % out.ndim], n_in, *out.shape[dim % out.ndim + 1:]),
+                          dtype=torch.float32, device=dm.device)
+        for k in range(idx.shape[1]):
+            acc = acc + wgt[:, k].view(shape) * out.index_select(dim, idx[:, k])
+        out = acc
+    return out
+
+
+def finish_backward_plain(part_stats: torch.Tensor, part_gb: torch.Tensor, part_dm: torch.Tensor,
+                          var: torch.Tensor, eps: float, src_hw: tuple[int, int],
+                          dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]):
+    """Plain version of the finishing kernel: the backward kernel's partial
+    buffers (part_stats (b, spans, 2, c), part_gb (b, spans, 2, o, c),
+    part_dm (groups, b, o, h, w), f32) into (dmean, dvar, dmask_src, dgamma,
+    dbeta). dmean = -r sum a and dvar = -r^2 sum a y / 2 with
+    r = 1 / sqrt(var + eps), f32; dmask_src, dgamma and dbeta in ``dtypes``.
+    The sums over spans, batches and groups are torch's (another order than
+    the kernel's: equal to round-off); the transposed resize is the
+    kernel's gather (``resize_bilinear_gather_backward``)."""
+    r = 1.0 / torch.sqrt(var + eps)
+    sums = part_stats.sum(dim=(0, 1))
+    gb = part_gb.sum(dim=1)
+    dmask = resize_bilinear_gather_backward(part_dm.sum(dim=0), src_hw)
+    return (-r * sums[0], -0.5 * r * r * sums[1], dmask.to(dtypes[0]), gb[:, 0].to(dtypes[1]),
+            gb[:, 1].to(dtypes[2]))
+
+
 def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: BackwardConfig):
     """One launch of the backward kernel; returns dx_direct and the three
     partial-sum buffers."""
@@ -291,16 +403,37 @@ def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: 
     dx = torch.empty_like(x)
     part_stats = torch.empty(b, cfg.n_spans, 2, c, **f32)
     part_gb = torch.empty(b, cfg.n_spans, 2, o, c, **f32)
-    part_dm = torch.empty(cfg.n_groups, b, o, h * w, **f32)
+    part_dm = torch.empty(cfg.n_groups, b, o, h, w, **f32)
+    aligned = (h * w) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, grad, dx))
     lib, fn = _backward_kernel()
-    err = fn(int(x.dtype == torch.bfloat16), x.data_ptr(), mean.data_ptr(), var.data_ptr(),
-             mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(), grad.data_ptr(),
-             dx.data_ptr(), part_stats.data_ptr(), part_gb.data_ptr(), part_dm.data_ptr(),
-             b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.tp, cfg.tiles_per_span,
-             cfg.n_groups, cfg.chunks_per_group, torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(int(x.dtype == torch.bfloat16), int(aligned), x.data_ptr(), mean.data_ptr(),
+             var.data_ptr(), mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+             grad.data_ptr(), dx.data_ptr(), part_stats.data_ptr(), part_gb.data_ptr(),
+             part_dm.data_ptr(), b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.threads, cfg.tp,
+             cfg.tiles_per_span, cfg.n_groups, cfg.chunks_per_group, cfg.ksplit,
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "isla_norm backward launch")
     isla_norm_backward.launches += 1
     return dx, part_stats, part_gb, part_dm
+
+
+def _launch_finish(part_stats, part_gb, part_dm, var, eps, mask_src, gamma):
+    """One launch of the finishing kernel; returns (dmean, dvar, dmask_src,
+    dgamma, dbeta)."""
+    groups, b, o, h, w = part_dm.shape
+    hs, ws = mask_src.shape[-2:]
+    c = gamma.shape[-1]
+    dmean = torch.empty(c, device=var.device, dtype=torch.float32)
+    dvar = torch.empty_like(dmean)
+    dmask, dgamma, dbeta = torch.empty_like(mask_src), torch.empty_like(gamma), torch.empty_like(gamma)
+    lib, fn = _finish_kernel()
+    err = fn(int(gamma.dtype == torch.bfloat16), part_stats.data_ptr(), part_gb.data_ptr(),
+             part_dm.data_ptr(), var.data_ptr(), dmean.data_ptr(), dvar.data_ptr(),
+             dmask.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, c, h, w, o, hs, ws,
+             float(eps), part_stats.shape[1], groups, torch.cuda.current_stream(var.device).cuda_stream)
+    _build.check(lib, err, "isla_norm backward finishing launch")
+    isla_norm_backward.finish_launches += 1
+    return dmean, dvar, dmask, dgamma, dbeta
 
 
 def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
@@ -311,9 +444,12 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
     is the part through y alone; autograd adds the parts through the
     statistics. dmean and dvar are f32, the rest in their input's dtype.
 
-    CUDA tensors launch ``csrc/isla_norm_bwd.cu`` (counted in
-    ``isla_norm_backward.launches``) and sum its partial buffers in a fixed
-    order; CPU tensors run autograd of ``isla_norm_plain``."""
+    CUDA tensors take two launches of ``csrc/isla_norm_bwd.cu`` and nothing
+    else on the card: the main kernel (dx_direct and three partial-sum
+    buffers; counted in ``isla_norm_backward.launches``) and the finishing
+    kernel (the fixed-order sums of those buffers and the transposed resize;
+    counted in ``isla_norm_backward.finish_launches``). CPU tensors run
+    autograd of ``isla_norm_plain``."""
     _check(x, mean, var, mask_src, gamma, beta)
     if grad.shape != x.shape or grad.dtype != x.dtype or grad.device != x.device:
         raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match x "
@@ -324,17 +460,10 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
         raise ValueError(f"isla_norm_backward has no kernel for device {x.device}")
     _check_cuda((x, mean, var, mask_src, gamma, beta, grad), mean, var, mask_src.shape[1])
     b, c, h, w = x.shape
-    o = mask_src.shape[1]
-    cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
-    dx, part_stats, part_gb, part_dm = _launch_backward(x, mean, var, eps, mask_src, gamma, beta,
-                                                        grad, relu, cfg)
-    r = torch.rsqrt(var + eps)
-    sums = part_stats.sum(dim=(0, 1))  # (2, c)
-    gb = part_gb.sum(dim=1)  # (b, 2, o, c)
-    dm = part_dm.sum(dim=0) if cfg.n_groups > 1 else part_dm[0]
-    dmask = resize_bilinear_backward(dm.view(b, o, h, w), tuple(mask_src.shape[-2:]))
-    return (dx, -r * sums[0], -0.5 * r * r * sums[1], dmask.to(mask_src.dtype),
-            gb[:, 0].to(gamma.dtype), gb[:, 1].to(beta.dtype))
+    cfg = backward_config(b, c, h, w, mask_src.shape[1], _num_sms(x.device.index))
+    dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg)
+    return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma))
 
 
 isla_norm_backward.launches = 0
+isla_norm_backward.finish_launches = 0

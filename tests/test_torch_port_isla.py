@@ -8,6 +8,9 @@ and its kernel tiling, which the CPU can reach. The CUDA kernel's own tests
 need a card and no JAX: they are in ``test_torch_port_kernels.py``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,9 +19,14 @@ import jax
 import jax.numpy as jnp
 
 from layout2img_tpu.nn.norms import SpatialAdaptiveNorm as JaxSpatialAdaptiveNorm
+from layout2img_tpu.ops.interp import resize_bilinear as jax_resize_bilinear
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm
-from layout2img_tpu_torch.ops.isla import (backward_config, isla_modulate_plain, isla_norm,
-                                           isla_norm_plain, launch_config)
+from layout2img_tpu_torch.ops.interp import _resize_matrix_np
+from layout2img_tpu_torch.ops import isla
+from layout2img_tpu_torch.ops.isla import (_bwd_smem_bytes, backward_config, blocks_per_sm,
+                                           finish_backward_plain, isla_modulate_plain, isla_norm,
+                                           isla_norm_plain, launch_config,
+                                           resize_bilinear_gather_backward, slot_bucket)
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 
@@ -209,11 +217,114 @@ def test_launch_config_covers_the_map(b, c, h, w, o, itemsize):
                             (128, 1024, 8, 8, 64), (1, 3, 1, 1, 64)])
 def test_backward_config_covers_the_map(b, c, h, w, o):
     """The backward kernel's tiling: tiles cover the map, spans cover the
-    tiles, channel groups cover the channels, and a block fits the card."""
+    tiles, channel groups cover the channels, a block fits the card, and
+    there are enough threads for the mask tile and U. At the serving shapes
+    (o=31) 32 warps fit on an SM from h=16 up, and h=4 gets two blocks per
+    SM at b=8."""
     cfg = backward_config(b, c, h, w, o, num_sms=132)
-    assert cfg.tp in (16, 32, 64) and cfg.tp * cfg.cc == 16 * 128
+    assert cfg.threads in (64, 128, 256) and cfg.tp in (16, 32, 64)
+    assert cfg.tp * cfg.cc == 8 * cfg.threads, "each thread owns 4 pixels x 2 channels"
+    slots = slot_bucket(o)
+    assert o <= slots and slots % 4 == 0
+    assert cfg.threads >= cfg.tp and cfg.ksplit * (slots * cfg.tp // 16) <= cfg.threads
+    assert cfg.ksplit & (cfg.ksplit - 1) == 0 and 2 * cfg.ksplit * (slots * cfg.tp // 16) > cfg.threads
     assert (cfg.n_tiles - 1) * cfg.tp < h * w <= cfg.n_tiles * cfg.tp
     assert (cfg.n_spans - 1) * cfg.tiles_per_span < cfg.n_tiles <= cfg.n_spans * cfg.tiles_per_span
     covered = cfg.n_groups * cfg.chunks_per_group * cfg.cc
     assert covered >= c and (cfg.n_groups - 1) * cfg.chunks_per_group * cfg.cc < c
     assert cfg.smem_bytes <= SMEM_LIMIT
+    assert cfg.smem_bytes == _bwd_smem_bytes(o, cfg.tp, cfg.cc, cfg.chunks_per_group * cfg.cc,
+                                             cfg.threads)
+    if o == 31 and h >= 16:
+        assert blocks_per_sm(cfg.threads, cfg.smem_bytes) * cfg.threads // 32 >= 32
+    if o == 31 and h == 4 and b == 8:
+        assert b * cfg.n_spans * cfg.n_groups >= 256, "about two blocks per SM"
+
+
+@pytest.mark.parametrize("b,c,h,o_full,o_cut", [(2, 64, 16, 31, 15), (8, 1024, 4, 31, 9),
+                                              (8, 64, 128, 31, 9), (2, 48, 9, 8, 3),
+                                              (2, 48, 9, 64, 40)])
+def test_backward_config_ignores_pad_slots(b, c, h, o_full, o_cut):
+    """Cutting pad slots within a bucket leaves the backward's tiling, and with
+    it the order of every sum, as it was: only the shared memory shrinks."""
+    full, cut = (backward_config(b, c, h, h, o, num_sms=132) for o in (o_full, o_cut))
+    assert slot_bucket(o_full) == slot_bucket(o_cut)
+    assert full._replace(smem_bytes=0) == cut._replace(smem_bytes=0)
+    assert cut.smem_bytes <= full.smem_bytes
+
+
+def test_bwd_smem_bytes_mirrors_the_kernel():
+    """``_bwd_smem_bytes`` against ``smem_words`` of ``csrc/isla_norm_bwd.cu``,
+    whose expression is read from the source and evaluated here."""
+    src = (Path(isla.__file__).resolve().parent.parent / "csrc" / "isla_norm_bwd.cu").read_text()
+    expr = re.search(r"inline int smem_words\(int O, int O4, int tp, int cc, int cg, int threads\) "
+                     r"\{\s*return ([^;]+);", src).group(1)
+    for o, tp, cc, cg, threads in [(31, 64, 32, 64, 256), (3, 16, 32, 32, 64), (64, 32, 64, 128, 256),
+                                   (8, 16, 64, 192, 128)]:
+        words = eval(" ".join(expr.split()), {}, dict(O=o, O4=-(-o // 4) * 4, tp=tp, cc=cc, cg=cg, threads=threads))
+        assert _bwd_smem_bytes(o, tp, cc, cg, threads) == 4 * words
+
+
+# (h, hs): the ten ISLA norms of one Ours-D 128px forward (x at h, its source
+# mask at hs), then odd sizes: 9x13 <- 5x7, 1x1 both ways, up- and
+# down-sampling by non-integer ratios
+_RESIZE_PAIRS = ([((h, h), (hs, hs)) for h, _, hs in
+                  [(4, 1024, 64), (8, 1024, 64), (8, 1024, 8), (16, 512, 8), (16, 512, 16),
+                   (32, 256, 16), (32, 256, 32), (64, 128, 32), (64, 128, 64), (128, 64, 64)]]
+                 + [((9, 13), (5, 7)), ((1, 1), (1, 1)), ((1, 1), (6, 5)), ((7, 3), (1, 1)),
+                    ((5, 7), (9, 13)), ((12, 20), (7, 3))])
+
+
+def _resize_transpose(g: torch.Tensor, in_hw: tuple[int, int]) -> torch.Tensor:
+    """The transpose of ``resize_bilinear`` as its two matrices,
+    ``W_y^T @ g @ W_x`` on the input grid ``in_hw``."""
+    wy, wx = (torch.from_numpy(_resize_matrix_np(n_out, n_in, False)).to(g.dtype)
+              for n_out, n_in in zip(g.shape[-2:], in_hw))
+    return wy.T @ g @ wx
+
+
+@pytest.mark.parametrize("dst,src", _RESIZE_PAIRS)
+def test_gather_backward_matches_resize_transpose(rng, dst, src):
+    """The finishing kernel's transposed resize, written as its index gather,
+    against the resize's matrix transpose and JAX's VJP of its resize. Bar:
+    f32 round-off, 1e-6 of max|result| (sums of at most a few dozen taps;
+    the taps' weights are computed in f32 here and in f64 in the matrices)."""
+    g = rng.standard_normal((2, 3, *dst)).astype(np.float32)
+    got = resize_bilinear_gather_backward(torch.from_numpy(g), src).numpy()
+    mine = _resize_transpose(torch.from_numpy(g), src).numpy()
+    _, vjp = jax.vjp(lambda m: jax_resize_bilinear(m, dst), jnp.zeros((2, 3, *src), jnp.float32))
+    (theirs,) = vjp(jnp.asarray(g))
+    assert got.shape == (2, 3, *src) and got.dtype == np.float32
+    bar = 1e-6 * max(1.0, np.abs(theirs).max())
+    np.testing.assert_allclose(got, np.asarray(theirs), atol=bar, rtol=0)
+    np.testing.assert_allclose(got, mine, atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,o,c,dst,src,spans,groups",
+                         [(2, 3, 16, (9, 13), (5, 7), 3, 2), (2, 31, 8, (4, 4), (64, 64), 1, 4),
+                          (1, 8, 4, (16, 16), (8, 8), 5, 1)])
+def test_finish_plain_matches_the_wrapper_formulas(rng, dtype, b, o, c, dst, src, spans, groups):
+    """The finishing step's plain version on random partial buffers against
+    the formulas the wrapper applied around its single launch before the
+    finishing kernel: rsqrt, sums over spans and groups, the matrix
+    transpose of the resize. Bar: f32 round-off (1e-6 of max|result|),
+    then one rounding to the output dtype."""
+    part_stats = torch.from_numpy(rng.standard_normal((b, spans, 2, c)).astype(np.float32))
+    part_gb = torch.from_numpy(rng.standard_normal((b, spans, 2, o, c)).astype(np.float32))
+    part_dm = torch.from_numpy(rng.standard_normal((groups, b, o, *dst)).astype(np.float32))
+    var = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    got = finish_backward_plain(part_stats, part_gb, part_dm, var, 1e-5, src, (dtype,) * 3)
+
+    r = torch.rsqrt(var + 1e-5)
+    sums = part_stats.sum(dim=(0, 1))
+    gb = part_gb.sum(dim=1)
+    dmask = _resize_transpose(part_dm.sum(dim=0), src)
+    want = (-r * sums[0], -0.5 * r * r * sums[1], dmask, gb[:, 0], gb[:, 1])
+    for name, a, w, dt in zip(("dmean", "dvar", "dmask", "dgamma", "dbeta"), got, want,
+                              (torch.float32, torch.float32, dtype, dtype, dtype)):
+        assert a.dtype == dt and a.shape == w.shape, name
+        bar = 1e-6 * w.abs().max().item()
+        # bf16: one rounding of the f32 result, at most half a bf16 ulp (2^-9 relative)
+        np.testing.assert_allclose(a.float().numpy(), w.numpy(), atol=bar,
+                                   rtol=0 if dt == torch.float32 else 2 ** -8, err_msg=name)

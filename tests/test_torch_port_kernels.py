@@ -18,7 +18,8 @@ import torch
 
 from layout2img_tpu_torch.nn.norms import batch_stats
 from layout2img_tpu_torch.ops import _build
-from layout2img_tpu_torch.ops.isla import (BackwardConfig, _launch_backward, isla_norm,
+from layout2img_tpu_torch.ops.isla import (BackwardConfig, _launch_backward, _launch_finish,
+                                           backward_config, finish_backward_plain, isla_norm,
                                            isla_norm_backward, isla_norm_plain)
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -134,21 +135,11 @@ BWD_SHAPES = [(2, 48, (9, 13), (5, 7), 3), (2, 48, (9, 13), (5, 7), 64), (1, 200
               (8, 1024, (4, 4), (64, 64), 31), (8, 64, (128, 128), (64, 64), 31)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,hw,src_hw,o", BWD_SHAPES)
-def test_isla_backward_matches_plain_autograd(cuda_device, dtype, b, c, hw, src_hw, o, relu):
-    """Every gradient of the fused norm with batch statistics, through the
-    backward kernel, against autograd of the plain version on the same
-    inputs in f32. Bars, each against max|plain| of that gradient: 1e-4 in
-    f32 (sums over up to 130k pixels in another order, and 1/d up to 1e6
-    where no object covers a pixel), 2e-2 in bf16 (x, g, masks, gamma and
-    beta rounded to bf16, dx rounded on the store). With the ReLU, the output
-    gradient is zeroed where the output is within 1e-5 of max|output| of
-    zero: there the kernel's recomputed output and the oracle's may fall on
-    opposite sides of the gate."""
-    x, _, _, _, mask, gamma, beta = _inputs(o * c + hw[0], b, o, c, hw, src_hw, dtype, cuda_device)
+def _check_backward(cuda_device, dtype, b, c, hw, src_hw, o, relu, pattern):
+    """The backward through ``isla_norm`` against autograd of the plain
+    version; bars in ``test_isla_backward_matches_plain_autograd``."""
+    x, _, _, _, mask, gamma, beta = _inputs(o * c + hw[0], b, o, c, hw, src_hw, dtype, cuda_device,
+                                            pattern)
     grad = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda_device, dtype)
     if relu:
         pre = isla_norm_plain(x.float(), *batch_stats(x), 1e-5, mask.float(),
@@ -166,6 +157,32 @@ def test_isla_backward_matches_plain_autograd(cuda_device, dtype, b, c, hw, src_
         assert torch.isfinite(g.float()).all(), name
         err = (g.float() - w).abs().max().item()
         assert err <= tol * w.abs().max().item(), (name, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,src_hw,o", BWD_SHAPES)
+def test_isla_backward_matches_plain_autograd(cuda_device, dtype, b, c, hw, src_hw, o, relu):
+    """Every gradient of the fused norm with batch statistics, through the
+    backward kernel, against autograd of the plain version on the same
+    inputs in f32. Bars, each against max|plain| of that gradient: 1e-4 in
+    f32 (sums over up to 130k pixels in another order, and 1/d up to 1e6
+    where no object covers a pixel), 2e-2 in bf16 (x, g, masks, gamma and
+    beta rounded to bf16, dx rounded on the store). With the ReLU, the output
+    gradient is zeroed where the output is within 1e-5 of max|output| of
+    zero: there the kernel's recomputed output and the oracle's may fall on
+    opposite sides of the gate."""
+    _check_backward(cuda_device, dtype, b, c, hw, src_hw, o, relu, "sparse")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,src_hw,o", [BWD_SHAPES[1], BWD_SHAPES[3], BWD_SHAPES[4]])
+def test_isla_backward_dense_masks(cuda_device, dtype, b, c, hw, src_hw, o):
+    """Every object non-zero everywhere: every slot is live on every tile,
+    the most work for G, B, dgamma and dbeta. Bars as above."""
+    _check_backward(cuda_device, dtype, b, c, hw, src_hw, o, True, "dense")
 
 
 @pytest.mark.cuda
@@ -205,10 +222,62 @@ def test_isla_backward_refused_launch_raises(cuda_device):
     refused by the runtime; the wrapper raises instead of returning garbage."""
     x, mean, var, eps, mask, gamma, beta = _inputs(0, 1, 64, 2048, (4, 4), (4, 4), torch.float32,
                                                    cuda_device)
-    cfg = BackwardConfig(tp=16, cc=128, n_tiles=1, tiles_per_span=1, n_spans=1, n_groups=1,
-                         chunks_per_group=16, smem_bytes=0)
+    cfg = BackwardConfig(threads=256, tp=16, cc=128, n_tiles=1, tiles_per_span=1, n_spans=1,
+                         n_groups=1, chunks_per_group=16, ksplit=1, smem_bytes=0)
     with pytest.raises(RuntimeError, match="CUDA error"):
         _launch_backward(x, mean, var, eps, mask, gamma, beta, torch.randn_like(x), False, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,src_hw,o", BWD_SHAPES + [(8, 1024, (8, 8), (8, 8), 31),
+                                                      (8, 128, (64, 64), (32, 32), 31)])
+def test_isla_backward_finish_matches_plain(cuda_device, dtype, b, c, hw, src_hw, o):
+    """The finishing kernel against ``finish_backward_plain`` on the partial
+    buffers the main kernel wrote. Bars: 1e-5 of max|plain| (sums of up to
+    688 partials per channel in another order, fused multiply-adds in the
+    gather); bf16 outputs also one rounding (2^-8 of each value)."""
+    x, mean, var, eps, mask, gamma, beta = _inputs(o * c + hw[0], b, o, c, hw, src_hw, dtype,
+                                                   cuda_device)
+    grad = torch.randn_like(x)
+    cfg = backward_config(b, c, *hw, o)
+    _, *parts = _launch_backward(x, mean, var, eps, mask, gamma, beta, grad, True, cfg)
+    before = isla_norm_backward.finish_launches
+    got = _launch_finish(*parts, var, eps, mask, gamma)
+    torch.cuda.synchronize()
+    assert isla_norm_backward.finish_launches == before + 1
+    want = finish_backward_plain(*parts, var, eps, src_hw, (torch.float32,) * 3)
+    for name, a, w, dt in zip(("dmean", "dvar", "dmask", "dgamma", "dbeta"), got, want,
+                              (torch.float32, torch.float32, dtype, dtype, dtype)):
+        assert a.dtype == dt and a.shape == w.shape, name
+        bar = 1e-5 * w.abs().max().item() + (0.0 if dt == torch.float32 else 2 ** -8) * w.abs()
+        assert ((a.float() - w).abs() <= bar).all(), (name, (a.float() - w).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,hw,src_hw,o", [BWD_SHAPES[0], BWD_SHAPES[3], BWD_SHAPES[4]])
+def test_isla_backward_is_two_kernels(cuda_device, b, c, hw, src_hw, o):
+    """One ``isla_norm_backward`` call runs exactly two kernels on the card,
+    the main and the finishing one (the profiler's count), and adds one to
+    each counter: ``isla_norm_backward.launches`` counts the main kernel,
+    ``isla_norm_backward.finish_launches`` the finishing one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, mean, var, eps, mask, gamma, beta = _inputs(1, b, o, c, hw, src_hw, torch.float32,
+                                                   cuda_device)
+    grad = torch.randn_like(x)
+    isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad, True)  # build, warm up
+    torch.cuda.synchronize()
+    before = (isla_norm_backward.launches, isla_norm_backward.finish_launches)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad, True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert sum("isla_norm_bwd_kernel" in k for k in kernels) == 1, kernels
+    assert sum("isla_norm_bwd_finish_kernel" in k for k in kernels) == 1, kernels
+    assert (isla_norm_backward.launches, isla_norm_backward.finish_launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda

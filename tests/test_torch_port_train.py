@@ -69,7 +69,7 @@ from layout2img_tpu_torch.models.discriminators import make_discriminator
 from layout2img_tpu_torch.models.generators import make_generator
 from layout2img_tpu_torch.nn.blocks import PSPModule
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm, SyncBatchNorm
-from layout2img_tpu_torch.ops.interp import resize_bilinear, resize_bilinear_backward
+from layout2img_tpu_torch.ops.interp import _resize_matrix_np, resize_bilinear
 from layout2img_tpu_torch.ops.isla import isla_norm_backward
 from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 from layout2img_tpu_torch.train.step import make_train_step
@@ -163,6 +163,14 @@ def test_spatial_adaptive_norm_train_and_grads(rng, h, hs):
         _rel_close(g, _nchw(w) if name == "x" else w, 1e-5, name)
 
 
+def _resize_transpose(g: torch.Tensor, in_hw: tuple[int, int]) -> torch.Tensor:
+    """The transpose of ``resize_bilinear`` as its two matrices,
+    ``W_y^T @ g @ W_x`` on the input grid ``in_hw``."""
+    wy, wx = (torch.from_numpy(_resize_matrix_np(n_out, n_in, False)).to(g.dtype)
+              for n_out, n_in in zip(g.shape[-2:], in_hw))
+    return wy.T @ g @ wx
+
+
 @pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("b,o,c,hw,src", [(2, 5, 6, (9, 13), (5, 7)), (2, 3, 8, (8, 8), (8, 8)),
                                           (1, 4, 4, (4, 4), (16, 16))])
@@ -193,7 +201,7 @@ def test_isla_backward_plain_matches_autograd(b, o, c, hw, src, relu):
     wm = m * inv  # m_o/d
     u = torch.einsum("bchw,boc->bohw", gate * y, gamma) + torch.einsum("bchw,boc->bohw", gate, beta)
     want = (a * r[:, None, None], -r * a.sum(dim=(0, 2, 3)), -0.5 * r * r * (a * y).sum(dim=(0, 2, 3)),
-            resize_bilinear_backward((u - (wm * u).sum(dim=1, keepdim=True)) * inv, src),
+            _resize_transpose((u - (wm * u).sum(dim=1, keepdim=True)) * inv, src),
             torch.einsum("bohw,bchw->boc", wm, gate * y), torch.einsum("bohw,bchw->boc", wm, gate))
     for name, a, w in zip(("x", "mean", "var", "mask", "gamma", "beta"), got, want):
         # the plain version computes in f32
