@@ -8,7 +8,8 @@ the checkout's sources (``nvcc`` into ``build/kernels/``) and runs these
 phases in order, each printing its own lines; any failure exits non-zero.
 With no arguments it runs every phase with 100 timed launches per kernel
 and shape; ``--phases`` picks some (``rate`` needs ``slice``,
-``train_rate`` needs ``train``) and ``--reps`` sets the timed launches:
+``train_rate`` needs ``train``) and ``--reps`` sets the timed launches
+(a fifth of them, at least 5, for the b=128 calls of ``train_mixed``):
 
 1. device  -- requires CUDA; prints ``nvidia-smi``'s name and power limit.
 2. build   -- one ``nvcc`` per ``layout2img_tpu_torch/csrc/*.cu``, all
@@ -54,7 +55,19 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               warm-up) with peak memory, in f32 as ``cli/train.py`` runs it
               and, for comparison, with TF32 in cuDNN and matmul; the
               profiler's breakdown of one f32 train step.
-10. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+10. train_mixed -- the mixed-precision step (bf16 compute over f32 masters)
+              at full width: 5 steps at b=8 (finite losses; f32 masters that
+              moved; BN statistics and SN vectors moved; 10 launches of each
+              ISLA kernel per step, bf16 by the profiler); one f32 step at b=2
+              for each knob (remat=gd, remat_d_blocks=2, g_obj_budget=12,
+              d_obj_budget=12, fused_d, EMA) against the plain step at the CPU
+              tests' bars, 20 forward launches under remat; the ten bf16 ISLA
+              calls of one mixed step at the bench's shapes (b=128: o=8, and
+              o=31 cut to 12 by both budgets) against the plain versions, with
+              their times; the port's bench (``layout2img_tpu_torch/bench.py``)
+              in both configurations and the f32 step at b=32; the profiler's
+              breakdown of one mixed b=128 step.
+11. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -82,10 +95,19 @@ ISLA_REPLACES = "layout2img_tpu/ops/pallas/isla.py:85 (tree of d0260d0^, _isla_k
 ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
-PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate")
+PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
+          "train_mixed")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
+# kernel kinds of a profiled step, by marks in their names (first match wins)
+PROFILE_GROUPS = (("ISLA", ("isla_norm",)), ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+                  ("convolutions (cuDNN)", ("xmma", "cudnn", "conv", "implicit_gemm", "winograd",
+                                            "fft")),
+                  ("GEMMs (cuBLAS)", ("gemm", "cutlass", "sm90_", "ampere_", "Kernel2")),
+                  ("pooling", ("pool", "adaptive_avg", "atomic_adaptive")),
+                  ("reductions", ("reduce_kernel",)),
+                  ("elementwise and copies", ("elementwise", "copy", "fill", "CatArrayBatched")))
 TRAIN_STEPS = 5
 AFTER_PSP = ("res5.", "final.")  # G's layers after the PSP head
 PSP_STAGE_CONV = "res4.conv_mask.0.stages.0.1.weight"  # the conv before its 1x1 stage's BN
@@ -582,7 +604,8 @@ def slice_phase(seed: int, tmp_dir: str, dev) -> tuple[int, dict]:
     from layout2img_tpu_torch.cli.sample import load_generator
     from layout2img_tpu_torch.data.synthetic import synthetic_layouts
     from layout2img_tpu_torch.ops.isla import isla_norm
-    from layout2img_tpu_torch.sample import cast_floating, make_sample_fn
+    from layout2img_tpu_torch.sample import make_sample_fn
+    from layout2img_tpu_torch.utils.casting import cast_floating
     from layout2img_tpu_torch.utils.convert import init_generator
 
     t0 = time.perf_counter()
@@ -724,8 +747,10 @@ def _train_batch(rng, b: int, dev) -> dict:
     return batch
 
 
-def _trainer(paths: dict, dev, seed: int, deterministic: bool = False):
-    """(state, train_step) from the saved G and D, with the seeded VGG loss."""
+def _trainer(paths: dict, dev, seed: int, deterministic: bool = False, config=None,
+             remat_blocks: int = 0):
+    """(state, train_step) from the saved G and D, with the seeded VGG loss;
+    ``config`` is a ``TrainConfig`` (default: the f32 step)."""
     import torch
 
     from layout2img_tpu_torch.cli.sample import load_generator
@@ -735,12 +760,26 @@ def _trainer(paths: dict, dev, seed: int, deterministic: bool = False):
     from layout2img_tpu_torch.train.step import make_train_step
     from layout2img_tpu_torch.utils.convert import init_vgg
 
+    config = config or TrainConfig()
     gen = load_generator(paths["G"], dev)
-    disc = make_discriminator("d128_app", NUM_CLASSES, device=dev, ch=CH)
+    disc = make_discriminator("d128_app", NUM_CLASSES, device=dev, ch=CH, remat_blocks=remat_blocks)
     disc.load_state_dict(torch.load(paths["D"], map_location="cpu", weights_only=True), strict=True)
-    state = create_train_state(gen, disc, TrainConfig())
+    state = create_train_state(gen, disc, config)
     vgg = VGGLoss(init_vgg(seed + 2, device=dev))
-    return state, make_train_step(state, TrainConfig(), vgg_loss=vgg, deterministic=deterministic)
+    return state, make_train_step(state, config, vgg_loss=vgg, deterministic=deterministic)
+
+
+def save_train_weights(seed: int, tmp_dir: str) -> dict:
+    """Seeded full-width G and D saved as reference-format state dicts;
+    returns their paths."""
+    import torch
+
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
+
+    paths = {"G": os.path.join(tmp_dir, "train_G.pth"), "D": os.path.join(tmp_dir, "train_D.pth")}
+    torch.save(init_generator(seed, NUM_CLASSES, device="cpu", ch=CH).state_dict(), paths["G"])
+    torch.save(init_discriminator(seed + 1, NUM_CLASSES, device="cpu", ch=CH).state_dict(), paths["D"])
+    return paths
 
 
 def _grad_report(name: str, got, want, b: int) -> str:
@@ -829,31 +868,21 @@ def card_vs_cpu(seed: int, paths: dict, dev, b: int) -> None:
     phase("train", _grad_report("G", g_card["G"], g_cpu["G"], b))
 
 
-def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dict]:
-    """Drive the train step at full width; returns the launches of the ISLA
-    forward kernel and of the backward's main and finishing kernels in its
-    TRAIN_STEPS steps, and the saved weights' paths."""
+def drive_steps(name: str, tag: str, state, step, batches: list, rng, dev) -> tuple[int, int, int]:
+    """The main path of a train phase: the given steps, with the kernels'
+    counts set to 0 just before and read just after. Checks finite losses,
+    10 launches of each ISLA kernel per step, f32 masters, and that the
+    parameters, the BN running statistics and the SN u vectors moved.
+    Returns the launches of the forward kernel and of the backward's main
+    and finishing kernels."""
     import numpy as np
     import torch
 
     from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward
-    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
 
-    t0 = time.perf_counter()
-    paths = {"G": os.path.join(tmp_dir, "train_G.pth"), "D": os.path.join(tmp_dir, "train_D.pth")}
-    torch.save(init_generator(seed, NUM_CLASSES, device="cpu", ch=CH).state_dict(), paths["G"])
-    torch.save(init_discriminator(seed + 1, NUM_CLASSES, device="cpu", ch=CH).state_dict(), paths["D"])
-    state, step = _trainer(paths, dev, seed)
     gen, disc = state.generator, state.discriminator
-    phase("train", f"ours_d_context128 + d128_app ch={CH} classes={NUM_CLASSES}: "
-          f"{sum(p.numel() for p in gen.parameters())} + {sum(p.numel() for p in disc.parameters())} "
-          f"parameters, seeded, saved and reloaded strict in {time.perf_counter() - t0:.1f}s")
     before = {f"G.{k}": v.clone() for k, v in gen.state_dict().items()}
     before |= {f"D.{k}": v.clone() for k, v in disc.state_dict().items()}
-    data_rng = np.random.default_rng(seed)
-    batches = [_train_batch(data_rng, B, dev) for _ in range(TRAIN_STEPS)]
-    rng = torch.Generator(device=dev).manual_seed(seed)
-
     isla_norm.launches = isla_norm_backward.launches = isla_norm_backward.finish_launches = 0
     for i, batch in enumerate(batches):
         f0, b0, n0 = isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches
@@ -862,20 +891,23 @@ def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dic
         fwd, bwd = isla_norm.launches - f0, isla_norm_backward.launches - b0
         fin = isla_norm_backward.finish_launches - n0
         need((fwd, bwd, fin) == (10, 10, 10),
-             f"train step {i + 1}: {fwd} ISLA forward, {bwd} backward and {fin} finishing launches, "
-             "not 10 each")
+             f"{tag} train step {i + 1}: {fwd} ISLA forward, {bwd} backward and {fin} finishing "
+             "launches, not 10 each")
         values = {k: v.item() for k, v in metrics.items()}
-        need(all(np.isfinite(v) for v in values.values()), f"train step {i + 1}: non-finite {values}")
-        phase("train", f"f32 b={B} step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in values.items()))
+        need(all(np.isfinite(v) for v in values.values()), f"{tag} train step {i + 1}: non-finite {values}")
+        phase(name, f"{tag} b={len(batch['labels'])} step {i + 1}: "
+              + " ".join(f"{k}={v:.5f}" for k, v in values.items()))
     launches = (isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches)
-    phase("train", f"main path ran the ISLA forward kernel {launches[0]} times, the backward's "
+    phase(name, f"main path ran the ISLA forward kernel {launches[0]} times, the backward's "
           f"main kernel {launches[1]} times and its finishing kernel {launches[2]} times "
-          f"({TRAIN_STEPS} steps, 10 each per step)")
+          f"({len(batches)} steps, 10 each per step)")
 
     after = {f"G.{k}": v for k, v in gen.state_dict().items()}
     after |= {f"D.{k}": v for k, v in disc.state_dict().items()}
     params = {f"G.{k}": p for k, p in gen.named_parameters()}
     params |= {f"D.{k}": p for k, p in disc.named_parameters()}
+    masters = [k for k, p in params.items() if p.dtype != torch.float32 or p.grad.dtype != torch.float32]
+    need(not masters, f"{tag}: parameters or gradients not f32: {masters[:5]}")
     # a parameter whose gradient is exactly zero stays put (D's score biases:
     # while every hinge term is active, the real and fake terms cancel)
     zero_grad = sorted(k for k, p in params.items() if not p.grad.any())
@@ -883,10 +915,31 @@ def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dic
                        ("BN running statistics", [k for k in after if k.endswith("running_mean")]),
                        ("SN u vectors", [k for k in after if k.endswith("weight_u")])):
         still = [k for k in keys if torch.equal(before[k], after[k])]
-        need(keys and not still, f"train: {len(still)} of {len(keys)} {what} did not move: {still[:5]}")
-        phase("train", f"all {len(keys)} {what} moved")
-    phase("train", f"{len(zero_grad)} parameters had an exactly zero gradient in the last step: "
+        need(keys and not still, f"{tag}: {len(still)} of {len(keys)} {what} did not move: {still[:5]}")
+        phase(name, f"all {len(keys)} {what} moved (parameters and gradients f32)")
+    phase(name, f"{len(zero_grad)} parameters had an exactly zero gradient in the last step: "
           f"{zero_grad[:6]}")
+    return launches
+
+
+def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dict]:
+    """Drive the train step at full width; returns the launches of the ISLA
+    forward kernel and of the backward's main and finishing kernels in its
+    TRAIN_STEPS steps, and the saved weights' paths."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    paths = save_train_weights(seed, tmp_dir)
+    state, step = _trainer(paths, dev, seed)
+    gen, disc = state.generator, state.discriminator
+    phase("train", f"ours_d_context128 + d128_app ch={CH} classes={NUM_CLASSES}: "
+          f"{sum(p.numel() for p in gen.parameters())} + {sum(p.numel() for p in disc.parameters())} "
+          f"parameters, seeded, saved and reloaded strict in {time.perf_counter() - t0:.1f}s")
+    data_rng = np.random.default_rng(seed)
+    batches = [_train_batch(data_rng, B, dev) for _ in range(TRAIN_STEPS)]
+    launches = drive_steps("train", "f32", state, step, batches,
+                           torch.Generator(device=dev).manual_seed(seed), dev)
 
     # b=2 as the CPU tests run it, where the PSP head's 1x1 stage sees two
     # values per channel; b=8, where it sees eight
@@ -961,6 +1014,308 @@ def train_rate_phase(seed: int, card: str, paths: dict) -> tuple[float | None, .
     return f_ms, b_ms, n_ms
 
 
+def _profile_steps(step, batch, rng, n: int = 2):
+    """One profiler session over ``n`` steps after one unprofiled step:
+    (device ms per step, traced wall ms per step, kernels per step, rows of
+    (name, device ms per step, launches per step) by time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batch, rng)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(batch, rng)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(e.key, e.device_time_total / (1e3 * n), e.count // n) for e in prof.key_averages()
+            if e.device_time_total > 0 and not getattr(e, "is_user_annotation", False)
+            and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return sum(ms for _, ms, _ in rows), wall_ms, sum(k for _, _, k in rows), rows
+
+
+def _one_step(paths: dict, dev, seed: int, inputs, config, remat_blocks: int = 0):
+    """One step without dropout from the saved weights: the state, its
+    metrics, the ISLA launches (forward, backward main, finishing) and G's
+    parameters before it."""
+    from types import SimpleNamespace
+
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward
+
+    state, step = _trainer(paths, dev, seed, deterministic=True, config=config,
+                           remat_blocks=remat_blocks)
+    init = {k: p.detach().clone() for k, p in state.generator.named_parameters()}
+    isla_norm.launches = isla_norm_backward.launches = isla_norm_backward.finish_launches = 0
+    metrics = step.with_latents(*inputs)
+    sync(dev)
+    launches = (isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches)
+    return SimpleNamespace(state=state, metrics={k: v.item() for k, v in metrics.items()},
+                           launches=launches, init=init)
+
+
+def _same_step(tag: str, got, want, rtol: float, atol: float, param_atol: float,
+               state_atol: float | None = None, grads: bool = True) -> str:
+    """``got``'s step against ``want``'s: every metric of ``want`` within
+    atol + rtol |want|, every parameter within param_atol, with
+    ``state_atol`` every SN vector and BN running statistic, and with
+    ``grads`` every gradient at the step tests' per-layer bars."""
+    missing = sorted(set(want.metrics) - set(got.metrics))
+    need(not missing, f"{tag}: metrics missing: {missing}")
+    worst_m = max(abs(got.metrics[k] - v) / (atol + rtol * abs(v)) for k, v in want.metrics.items())
+    need(worst_m <= 1.0, f"{tag}: metrics off: {got.metrics} against {want.metrics}")
+    worst_p = worst_s = 0.0
+    grads_seen = {}
+    for net in ("generator", "discriminator"):
+        ga, gb = getattr(got.state, net), getattr(want.state, net)
+        pb, sb = dict(gb.named_parameters()), gb.state_dict()
+        for name, p in ga.named_parameters():
+            off = (p - pb[name]).abs().max().item()
+            need(off <= param_atol, f"{tag}: {net} parameter {name} off by {off} > {param_atol}")
+            worst_p = max(worst_p, off)
+        for name, t in ga.state_dict().items():
+            if state_atol is not None and name.endswith(("weight_u", "weight_v", "running_mean",
+                                                         "running_var")):
+                off = (t - sb[name]).abs().max().item()
+                need(off <= state_atol, f"{tag}: {net} {name} off by {off} > {state_atol}")
+                worst_s = max(worst_s, off)
+        grads_seen[net] = ({k: p.grad.detach().cpu() for k, p in ga.named_parameters()},
+                           {k: p.grad.detach().cpu() for k, p in pb.items()})
+    line = (f"{tag}: metrics within {worst_m:.3f} of their bar (rtol {rtol:g}, atol {atol:g}), "
+            f"parameters within {worst_p:.3e} (bar {param_atol:g})")
+    if state_atol is not None:
+        line += f", SN vectors and BN statistics within {worst_s:.3e} (bar {state_atol:g})"
+    if grads:
+        line += "; " + "; ".join(_grad_report(n[0].upper(), *grads_seen[n], 2)
+                                 for n in ("discriminator", "generator"))
+    return line
+
+
+def knob_checks(seed: int, paths: dict, dev) -> None:
+    """One f32 step at b=2 for each knob against the plain step from the same
+    weights, batch and latents, with cuDNN's deterministic algorithms, at
+    the CPU tests' bars: remat and remat_d_blocks as the plain step (losses
+    rtol 1e-4 + atol 1e-5, parameters 2.1e-4, SN vectors and BN statistics
+    1e-6, gradients at the step tests' per-layer bars); the object budgets
+    of 12 (6 valid objects in 31 slots) the same, the state at 1e-4 (fewer
+    slots reorder sums; the JAX parity tests' bar for the PSP bottleneck's
+    BN), with their overflow metrics at 0; fused_d at the JAX package's fused bars (losses rtol 5e-3
+    + atol 5e-4, parameters 1e-4 + 1e-2 |p|: two power iterations, not
+    three); EMA as the plain step, with e = 0.999 init + 0.001 new."""
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch.train.state import TrainConfig
+
+    batch = _train_batch(np.random.default_rng(seed + 9), 2, dev)
+    g = torch.Generator().manual_seed(seed + 9)
+    inputs = (batch, torch.randn(2, O, 128, generator=g).to(dev), torch.randn(2, 128, generator=g).to(dev))
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _one_step(paths, dev, seed, inputs, TrainConfig())
+        need(plain.launches == (10, 10, 10), f"plain step: ISLA launches {plain.launches}")
+        same = dict(rtol=1e-4, atol=1e-5, param_atol=2.1e-4)
+        for tag, cfg, blocks, want_launches, state_atol in (
+                ("remat=gd", TrainConfig(remat="gd"), 0, (20, 10, 10), 1e-6),
+                ("remat_d_blocks=2", TrainConfig(), 2, (10, 10, 10), 1e-6),
+                ("g_obj_budget=12", TrainConfig(g_obj_budget=12), 0, (10, 10, 10), 1e-4),
+                ("d_obj_budget=12", TrainConfig(d_obj_budget=12), 0, (10, 10, 10), 1e-4)):
+            got = _one_step(paths, dev, seed, inputs, cfg, remat_blocks=blocks)
+            need(got.launches == want_launches,
+                 f"{tag}: ISLA launches (forward, backward, finishing) {got.launches}, not {want_launches}")
+            overflow = {k: v for k, v in got.metrics.items() if k.endswith("_budget_overflow")}
+            need(all(v == 0.0 for v in overflow.values()) and len(overflow) == ("budget" in tag),
+                 f"{tag}: overflow metrics {overflow}")
+            phase("train_mixed", _same_step(tag, got, plain, state_atol=state_atol, **same)
+                  + f"; ISLA launches {got.launches}" + (f"; {overflow}" if overflow else ""))
+        got = _one_step(paths, dev, seed, inputs, TrainConfig(fused_d=True))
+        phase("train_mixed", _same_step("fused_d", got, plain, rtol=5e-3, atol=5e-4, param_atol=2.1e-4,
+                                        grads=False))
+        got = _one_step(paths, dev, seed, inputs, TrainConfig(ema_decay=0.999))
+        line = _same_step("ema_decay=0.999", got, plain, state_atol=1e-6, **same)
+        live = dict(got.state.generator.named_parameters())
+        off = max((e - (0.999 * got.init[k] + (1.0 - 0.999) * live[k].detach())).abs().max().item()
+                  for k, e in got.state.ema.items())
+        need(off <= 1e-6, f"ema_decay=0.999: the average is off by {off}")
+        need(all(e.data_ptr() != live[k].data_ptr() for k, e in got.state.ema.items()),
+             "ema_decay=0.999: the average aliases the live parameters")
+        phase("train_mixed", f"{line}; EMA = 0.999 init + 0.001 new within {off:.3e} (bar 1e-6)")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def capture_isla_calls(built) -> list[dict]:
+    """One step of a built bench state, keeping each ISLA norm call's inputs
+    and the gradient its output received."""
+    from layout2img_tpu_torch.nn import norms
+
+    real, calls = norms.isla_norm, []
+
+    def keep(x, mean, var, eps, mask, gamma, beta, relu=False):
+        out = real(x, mean, var, eps, mask, gamma, beta, relu=relu)
+        rec = {"args": tuple(t.detach() for t in (x, mean, var)) + (eps,)
+               + tuple(t.detach() for t in (mask, gamma, beta)), "relu": relu}
+        if out.requires_grad:
+            out.register_hook(lambda grad: rec.__setitem__("grad", grad.detach()))
+        calls.append(rec)
+        return out
+
+    norms.isla_norm = keep
+    try:
+        built.step(built.batch, built.rng)
+        sync(built.batch["labels"].device)
+    finally:
+        norms.isla_norm = real
+    return calls
+
+
+def check_captured(tag: str, calls: list, want_o: int, reps: int) -> tuple[float, ...]:
+    """Each captured bf16 call's forward (bar 1e-2 of max|plain|) and every
+    gradient of its backward (the direct dx, dmean, dvar, the source mask,
+    gamma, beta; bar 2e-2 of max|plain|, the output gradient zeroed at the
+    ReLU gate's ties) against the plain versions, as the kernel phases hold
+    bf16; then the kernels' and the plain versions' times (L2 flushed).
+    Returns (forward ms, plain ms, bound ms, backward ms, plain ms, bound
+    ms), each summed over the calls."""
+    import torch
+
+    from layout2img_tpu_torch.ops.interp import resize_bilinear
+    from layout2img_tpu_torch.ops.isla import (_plain_backward, isla_norm, isla_norm_backward,
+                                               isla_norm_plain)
+
+    need(len(calls) == 10 and all("grad" in c for c in calls),
+         f"{tag}: captured {len(calls)} ISLA calls, {sum('grad' in c for c in calls)} with gradients")
+    flush = torch.empty(2**28, dtype=torch.float32, device="cuda")
+    sums = [0.0] * 6
+    for i, rec in enumerate(calls):
+        x, mean, var, eps, mask, gamma, beta = rec["args"]
+        relu, grad = rec["relu"], rec["grad"]
+        b, c, h, w = x.shape
+        o, hs = mask.shape[1], mask.shape[2]
+        where = f"{tag} call {i + 1}: b={b} o={o} h={h} c={c} hs={hs} relu={int(relu)}"
+        need(x.dtype == mask.dtype == gamma.dtype == grad.dtype == torch.bfloat16 and o == want_o,
+             f"{where}: not bf16 with o={want_o}: {x.dtype} {mask.dtype} {grad.dtype}")
+        args = (x, mean, var, eps, mask, gamma, beta)
+        with torch.no_grad():
+            got = isla_norm(*args, relu=relu).float()
+            ref = isla_norm_plain(*args, relu=relu).float()
+        f_err, f_scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        need(torch.isfinite(got).all().item() and f_err <= 1e-2 * f_scale,
+             f"{where}: forward off by {f_err} > 1e-2 * {f_scale}")
+        pre = isla_norm_plain(x.float(), mean, var, eps, mask.float(), gamma.float(), beta.float())
+        ties = pre.abs() <= 1e-5 * pre.abs().max() if relu else torch.zeros_like(pre, dtype=torch.bool)
+        grad = grad.masked_fill(ties, 0)
+        got_b = isla_norm_backward(*args, grad, relu)
+        want_b = _plain_backward(x.float(), mean, var, eps, mask.float(), gamma.float(), beta.float(),
+                                 grad.float(), relu)
+        errs = []
+        for name, a, wt in zip(("x", "mean", "var", "mask_src", "gamma", "beta"), got_b, want_b):
+            err, scale = (a.float() - wt).abs().max().item(), wt.abs().max().item()
+            need(torch.isfinite(a.float()).all().item() and err <= 2e-2 * scale,
+                 f"{where}: backward off in d{name}: {err} > 2e-2 * {scale}")
+            errs.append(f"d{name} {err / max(scale, 1e-30):.1e}")
+        live = int((resize_bilinear(mask.float(), (h, w)) != 0).sum().item())
+        bound_f, bound_b = isla_cost(x, mask, live, "bfloat16")[0], isla_bwd_cost(x, mask, live, "bfloat16")[0]
+        with torch.no_grad():
+            f_ms = time_ms(lambda: isla_norm(*args, relu=relu), reps, flush)[0]
+            pf_ms = time_ms(lambda: isla_norm_plain(*args, relu=relu), max(3, reps // 4), flush)[0]
+        b_ms = time_ms(lambda: isla_norm_backward(*args, grad, relu), reps, flush)[0]
+        pb_ms = time_ms(lambda: _plain_backward(*args, grad, relu), max(3, reps // 4), flush)[0]
+        phase("train_mixed", f"{where}: forward rel_err {f_err / f_scale:.1e} (bar 1e-2), backward "
+              f"rel_err {', '.join(errs)} (bar 2e-2, {int(ties.sum())} gate ties); forward "
+              f"{f_ms:.5f} ms (plain {pf_ms:.5f}, bound {bound_f:.5f}), backward {b_ms:.5f} ms "
+              f"(plain {pb_ms:.5f}, bound {bound_b:.5f})")
+        for j, v in enumerate((f_ms, pf_ms, bound_f, b_ms, pb_ms, bound_b)):
+            sums[j] += v
+    phase("train_mixed", f"{tag}: the ten bf16 calls of one step: forward {sums[0]:.5f} ms (plain "
+          f"{sums[1]:.5f}, bound {sums[2]:.5f}), backward {sums[3]:.5f} ms (plain {sums[4]:.5f}, "
+          f"bound {sums[5]:.5f})")
+    return tuple(sums)
+
+
+def train_mixed_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None,
+                      reps: int) -> dict:
+    """The mixed-precision step at full width, the knobs against the plain
+    step, the kernels at the bench's shapes and the bench's rates. Returns
+    the kernel rows' additions."""
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch import bench
+    from layout2img_tpu_torch.train.state import TrainConfig
+
+    t0 = time.perf_counter()
+    paths = paths or save_train_weights(seed, tmp_dir)
+
+    # ---- the main path: 5 mixed steps at b=8 ----
+    state, step = _trainer(paths, dev, seed, config=TrainConfig(mixed_precision=True))
+    data_rng = np.random.default_rng(seed + 3)
+    batches = [_train_batch(data_rng, B, dev) for _ in range(TRAIN_STEPS)]
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    launches = drive_steps("train_mixed", "bf16 mixed", state, step, batches, rng, dev)
+    names = device_kernels([lambda: step(batches[0], rng)])
+    kinds = {k: [n for n in names if k in n] for k in ("isla_norm_kernel", "isla_norm_bwd_kernel",
+                                                       "isla_norm_bwd_finish_kernel")}
+    need(all(len(v) == 10 and all("bfloat16" in n for n in v) for v in kinds.values()),
+         f"the profiler saw {[(k, len(v)) for k, v in kinds.items()]} ISLA kernels in one mixed "
+         f"step, not 10 bf16 each: {[v[:1] for v in kinds.values()]}")
+    phase("train_mixed", f"profiler: one mixed step ran 10 bf16 launches of each ISLA kernel "
+          f"({kinds['isla_norm_kernel'][0][:60]}...) among {len(names)} kernels")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    # ---- every knob against the plain step, f32 at b=2 ----
+    knob_checks(seed, paths, dev)
+
+    # ---- the kernels at the bench's shapes, the bench's rates, the profile ----
+    out = {"launches": launches}
+    configs = (("bench default", bench.BenchConfig(), 8),
+               ("bench VG budgeted", bench.BenchConfig(obj=31, classes=179, valid_max=10,
+                                                       d_obj_budget=12, g_obj_budget=12), 12))
+    for tag, cfg, want_o in configs:
+        built = bench.build(cfg, dev)
+        sums = check_captured(f"{tag} b={cfg.batch}", capture_isla_calls(built), want_o, reps)
+        out[tag] = sums
+        rate = bench.time_steps(built, cfg, dev)
+        phase("train_mixed", f"{tag} (b={cfg.batch}, o={cfg.obj}, valid_max={cfg.valid_max}, "
+              f"budgets g={cfg.g_obj_budget} d={cfg.d_obj_budget}, {cfg.classes} classes, mixed): "
+              f"{rate['img_s']:.1f} img/s, step {rate['median_ms']:.3f} ms median "
+              f"[{rate['p25_ms']:.3f}, {rate['p75_ms']:.3f}] over {len(rate['step_ms'])} steps, "
+              f"peak {rate['peak_gib']:.2f} GiB allocated on {card}; bench line "
+              + json.dumps(rate["line"]))
+        if tag == "bench default":
+            dev_ms, wall_ms, kernels, rows = _profile_steps(built.step, built.batch, built.rng)
+            need(dev_ms > 0, "the profiler saw no device time in the mixed b=128 step")
+            isla = [(k, ms, n) for k, ms, n in rows if "isla_norm" in k]
+            isla_ms = sum(ms for _, ms, _ in isla)
+            phase("train_mixed", f"profile mixed b={cfg.batch} o={cfg.obj}: device kernel time "
+                  f"{dev_ms:.3f} ms of {wall_ms:.3f} ms traced per step ({100 * dev_ms / wall_ms:.1f}% "
+                  f"busy), {kernels} kernels per step, ISLA kernels x{sum(n for _, _, n in isla)} "
+                  f"{isla_ms:.4f} ms ({100 * isla_ms / dev_ms:.1f}%) on {card}")
+            groups = {}
+            for key, ms, n in rows:
+                group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)), "other")
+                t_ms, t_n = groups.get(group, (0.0, 0))
+                groups[group] = (t_ms + ms, t_n + n)
+            phase("train_mixed", "profile by kind: " + "; ".join(
+                f"{g} {ms:.3f} ms ({100 * ms / dev_ms:.1f}%, x{n})"
+                for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+            for key, ms, n in rows[:15]:
+                phase("train_mixed", f"  {ms:8.4f} ms  {100 * ms / dev_ms:5.1f}%  x{n:<4d} {key[:90]}")
+        del built
+        torch.cuda.empty_cache()
+    f32 = bench.BenchConfig(batch=32, mixed=False, scan=3, scans=2)
+    rate = bench.run(f32, dev)
+    phase("train_mixed", f"f32 step for comparison (b=32, o=8, 184 classes, TF32 off): "
+          f"{rate['img_s']:.1f} img/s, step {rate['median_ms']:.3f} ms median "
+          f"[{rate['p25_ms']:.3f}, {rate['p75_ms']:.3f}] over {len(rate['step_ms'])} steps, peak "
+          f"{rate['peak_gib']:.2f} GiB allocated on {card}")
+    torch.cuda.empty_cache()
+    phase("train_mixed", f"{time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1026,6 +1381,16 @@ def main(argv=None) -> int:
         if "train_rate" in phases:
             (fwd["ms_in_step_traced"], bwd["ms_in_step_traced"],
              fin["ms_in_step_traced"]) = train_rate_phase(args.seed, card, paths)
+        if "train_mixed" in phases:
+            mixed = train_mixed_phase(args.seed, tmp_dir, dev, card,
+                                      paths if "train" in phases else None, max(5, args.reps // 5))
+            (fwd["launches_mixed"], bwd["launches_mixed"], fin["launches_mixed"]) = mixed["launches"]
+            for tag, suffix in (("bench default", "b128"), ("bench VG budgeted", "b128_vg_o12")):
+                f_ms, pf_ms, f_bound, b_ms, pb_ms, b_bound = mixed[tag]
+                fwd.update({f"ms_bf16_{suffix}": f_ms, f"plain_ms_bf16_{suffix}": pf_ms,
+                            f"bound_ms_bf16_{suffix}": f_bound})
+                bwd.update({f"ms_bf16_{suffix}": b_ms, f"plain_ms_bf16_{suffix}": pb_ms,
+                            f"bound_ms_bf16_{suffix}": b_bound})
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

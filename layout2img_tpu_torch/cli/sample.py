@@ -21,7 +21,8 @@ import torch
 from layout2img_tpu_torch.data.synthetic import synthetic_layouts
 from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
-from layout2img_tpu_torch.sample import cast_floating, make_sample_fn
+from layout2img_tpu_torch.sample import make_sample_fn
+from layout2img_tpu_torch.utils.casting import cast_floating
 
 SYNTHETIC_OBJECTS = 8  # the JAX CLI's synthetic shape (COCO: o=8)
 SYNTHETIC_BATCHES = 4

@@ -29,6 +29,12 @@ def synthetic_layouts(rng: np.random.Generator, b: int, o: int, num_classes: int
     return {"boxes": boxes, "labels": labels}
 
 
+def synthetic_valid_object_counts(o: int, min_objects: int = 3) -> np.ndarray:
+    """Every valid-object count ``synthetic_layouts`` can draw: n ~ U[min, o],
+    unbounded over steps, so the object-budget guard sees the true max."""
+    return np.arange(min_objects, o + 1, dtype=np.int32)
+
+
 def synthetic_batch(rng: np.random.Generator, batch_size: int, image_size: int = 128,
                     num_objects: int = 8, num_classes: int = 184, min_objects: int = 3) -> dict:
     """``{"images": (b, 3, s, s) f32 uniform in [-1, 1], "boxes", "labels"}``

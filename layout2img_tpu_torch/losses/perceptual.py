@@ -10,12 +10,20 @@ The module's names are torchvision's (``features.{i}``), so a torchvision
 downloaded: ``utils.convert.init_vgg`` gives seeded random filters (the
 JAX package's fallback too), and ``utils.convert.vgg19_state_dict_from_jax``
 converts the JAX package's parameters.
+
+``dtype=torch.bfloat16`` runs the conv stack in bf16 (the train step passes
+it under mixed precision): the VGG weights and both images are cast, and
+each tap's L1 mean still accumulates in f32.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+
+from layout2img_tpu_torch.utils.casting import cast_params
 
 # torchvision vgg19 'features' up to relu5_1 (conv channels; 'M' = 2x2 max pool)
 VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M", 512]
@@ -54,10 +62,17 @@ class VGGLoss(nn.Module):
         super().__init__()
         self.vgg = features.requires_grad_(False).eval()
 
-    def forward(self, fake: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
-        f_taps = self.vgg(fake)
+    def forward(self, fake: torch.Tensor, real: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """fake, real (b, 3, h, w) in [-1, 1] -> f32 scalar. ``dtype`` casts
+        the VGG weights and both images first (None: as they are)."""
+        vgg = self.vgg
+        if dtype is not None:
+            fake, real = fake.to(dtype), real.to(dtype)
+            vgg = functools.partial(torch.func.functional_call, self.vgg, cast_params(self.vgg, dtype))
+        f_taps = vgg(fake)
         with torch.no_grad():
-            r_taps = self.vgg(real)
+            r_taps = vgg(real)
         loss = torch.zeros((), dtype=torch.float32, device=fake.device)
         for w, f, r in zip(self.WEIGHTS, f_taps, r_taps):
             loss = loss + w * (f - r).to(torch.float32).abs().mean()

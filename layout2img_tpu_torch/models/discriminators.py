@@ -9,7 +9,10 @@ projection head; and the Gram-matrix appearance head (the reference's
 ``ResnetDiscriminator128_app``).
 Scores are fixed-shape (b, o): pad objects get scores that the masked
 hinge losses ignore, as the JAX package does in place of the reference's
-``label != 0`` filtering. Module names are the reference's
+``label != 0`` filtering. ``remat_blocks=N`` checkpoints the first N blocks
+of the image trunk (``nn/remat.py``; the JAX D's ``remat_blocks``): their
+activations, the largest of D, are recomputed in the backward. The
+parameters and the state dict are the same. Module names are the reference's
 (``rcnn_discriminator_app.py``), so ``utils.convert.discriminator_state_dict_from_jax``
 and reference-format dicts load with ``strict=True``.
 """
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from layout2img_tpu_torch.device import resolve_device
+from layout2img_tpu_torch.nn import remat
 from layout2img_tpu_torch.nn.blocks import DiscOptimizedBlock, DiscResBlock
 from layout2img_tpu_torch.nn.spectral import SNDense, SNEmbed
 from layout2img_tpu_torch.ops.bbox import xywh_to_xyxy
@@ -33,13 +37,15 @@ _ROADMAP_NO_APP = "ROADMAP.md §1 'Slices still to port', item 2 (the app-less D
 
 
 class LayoutDiscriminator(nn.Module):
-    def __init__(self, num_classes: int, image_size: int = 128, ch: int = 64):
+    def __init__(self, num_classes: int, image_size: int = 128, ch: int = 64,
+                 remat_blocks: int = 0):
         super().__init__()
         if image_size != 128:
             raise NotImplementedError(f"only the 128px discriminator is ported; {image_size}px "
                                       f"waits for {_ROADMAP_SIZES}")
         self.image_size = image_size
         self.ch = ch
+        self.remat_blocks = remat_blocks
         self.block1 = DiscOptimizedBlock(3, ch, downsample=True)  # 64
         self.block2 = DiscResBlock(ch, ch * 2, downsample=True)  # 32: the 1/4 map
         self.block3 = DiscResBlock(ch * 2, ch * 4, downsample=True)  # 16: the 1/8 map
@@ -66,9 +72,14 @@ class LayoutDiscriminator(nn.Module):
             raise ValueError(f"images {tuple(images.shape)} are not {s}px")
         b, o = labels.shape
         boxes_px = xywh_to_xyxy(boxes) * s
-        x = self.block1(images)
-        x1 = self.block2(x)
-        x2 = self.block3(x1)
+
+        def trunk(i: int, x: torch.Tensor) -> torch.Tensor:
+            block = getattr(self, f"block{i}")
+            return remat.checkpoint_module(block, x) if i <= self.remat_blocks else block(x)
+
+        x = trunk(1, images)
+        x1 = trunk(2, x)
+        x2 = trunk(3, x1)
         x = self.block6(self.block5(self.block4(x2)))
         out = {"image": self.l7(F.relu(x).sum(dim=(2, 3))),
                "valid": (labels != 0).to(torch.float32)}

@@ -5,7 +5,9 @@ eval it uses the running statistics. In training it uses the batch mean and
 the biased batch variance, ``max(E[x^2] - mean^2, 0)`` in f32 as the JAX
 package computes them, and updates the running statistics without gradient:
 momentum 0.1, the running variance unbiased by n / (n - 1), n = b*h*w. (One
-device: the cross-GPU sync waits for the multi-GPU slice.)
+device: the cross-GPU sync waits for the multi-GPU slice.) The recompute of
+a checkpointed region (``nn/remat.py``) folds nothing: the forward it repeats
+already did.
 
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
 mask-weighted per-object affine, and optionally the ReLU that follows it in
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from layout2img_tpu_torch.nn import remat
 from layout2img_tpu_torch.nn.spectral import SNDense
 from layout2img_tpu_torch.ops.isla import isla_norm
 
@@ -54,6 +57,8 @@ class SyncBatchNorm(nn.Module):
         if not self.training:
             return self.running_mean, self.running_var
         mean, var = batch_stats(x)
+        if remat.replaying():
+            return mean, var
         n = x.numel() // x.shape[1]
         m = MOMENTUM
         with torch.no_grad():

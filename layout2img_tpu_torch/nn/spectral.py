@@ -11,7 +11,9 @@ In training (``module.train()``) each call first runs one power iteration,
 ``v = normalize(W^T u)``, ``u = normalize(W v)``, stores the new ``u`` in
 place, and takes ``sigma = u . W v`` with u and v detached, as the JAX
 package's ``update_stats=True`` does: so a layer called twice in one forward
-advances u twice. In eval sigma is differentiated through v.
+advances u twice. In eval sigma is differentiated through v. Inside the
+recompute of a checkpointed region (``nn/remat.py``) the layer reuses the
+(u, v) of the forward call it repeats and leaves ``weight_u`` alone.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from layout2img_tpu_torch.nn import remat
 
 
 def spectral_sigma(w_mat: torch.Tensor, u: torch.Tensor, eps: float) -> torch.Tensor:
@@ -52,10 +56,14 @@ class _SNWeight(nn.Module):
         w = self.weight_orig
         w_mat = w.reshape(w.shape[0], -1)
         if self.training:
-            u, v = power_iteration(w_mat, self.weight_u.to(torch.float32), self.eps)
-            self.weight_u.copy_(u)
+            def advance():
+                u, v = power_iteration(w_mat, self.weight_u.to(torch.float32), self.eps)
+                self.weight_u.copy_(u)
+                return u, v
+
             # u is a fresh tensor: later in-place updates of weight_u leave
             # this call's graph intact
+            u, v = remat.layer_state(self, advance)
             sigma = u @ (w_mat.to(torch.float32) @ v)
         else:
             sigma = spectral_sigma(w_mat, self.weight_u.to(torch.float32), self.eps)

@@ -44,17 +44,18 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def isla_modulate_plain(xn: torch.Tensor, mask: torch.Tensor, gamma: torch.Tensor,
                         beta: torch.Tensor) -> torch.Tensor:
-    """The modulation alone: the denominator, then two contractions over o.
+    """The modulation alone: the denominator, then one contraction over o of
+    gamma and beta side by side.
 
     xn (b, c, h, w); mask (b, o, h, w) at xn's size; gamma, beta (b, o, c).
     Computed in f32, returned in ``xn.dtype``.
     """
     f32 = torch.float32
+    c = xn.shape[1]
     m = mask.to(f32)
     d = m.sum(dim=1, keepdim=True) + EPS  # (b, 1, h, w)
-    gmap = torch.einsum("bohw,boc->bchw", m, gamma.to(f32)) / d + 1.0
-    bmap = torch.einsum("bohw,boc->bchw", m, beta.to(f32)) / d
-    return (xn.to(f32) * gmap + bmap).to(xn.dtype)
+    maps = torch.einsum("bohw,boc->bchw", m, torch.cat([gamma, beta], dim=-1).to(f32)) / d
+    return (xn.to(f32) * (maps[:, :c] + 1.0) + maps[:, c:]).to(xn.dtype)
 
 
 def isla_norm_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,

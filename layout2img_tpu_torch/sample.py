@@ -2,8 +2,8 @@
 
 Truncated-normal latents from an explicit ``torch.Generator``, eval-mode
 generator, optional object-budget compaction. ``dtype=torch.bfloat16``
-serves with bf16 weights and latents (``cast_floating``); boxes stay f32
-for coordinate precision either way.
+serves with bf16 weights and latents (``utils.casting.cast_floating``);
+boxes stay f32 for coordinate precision either way.
 """
 
 from __future__ import annotations
@@ -14,15 +14,7 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.models.generators import obj_budget_error
-
-
-def cast_floating(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the floating parameters (not the buffers: BN statistics and SN
-    vectors stay f32, as in the JAX package) to ``dtype``, in place."""
-    for p in module.parameters():
-        if p.is_floating_point():
-            p.data = p.data.to(dtype)
-    return module
+from layout2img_tpu_torch.utils.casting import cast_floating  # noqa: F401  (re-exported)
 
 
 def truncated_normal(shape: tuple[int, ...], truncation: float, generator: torch.Generator,

@@ -2,6 +2,7 @@
 package and no Triton (its kernels are CUDA C++), and its entry points never
 fall back to the CPU on their own."""
 
+import json
 import os
 import subprocess
 import sys
@@ -12,7 +13,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import layout2img_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(layout2img_tpu_torch.__path__, "layout2img_tpu_torch.")]
 for name in names:
@@ -21,8 +22,10 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "layout2img_tpu",
                                     "triton"))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
+# modules the walk must reach, the train step's knobs and the bench among them
+_MODULES = ("bench", "cli.train", "nn.remat", "train.ema", "train.step", "utils.casting")
 
 
 def test_port_imports_no_jax():
@@ -30,9 +33,10 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(maxsplit=1)
-    assert int(n) >= 20, out.stdout
-    assert bad.strip() == "[]", out.stdout
+    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(seen["names"]) >= 20, seen
+    assert {f"layout2img_tpu_torch.{m}" for m in _MODULES} <= set(seen["names"]), seen["names"]
+    assert seen["bad"] == [], seen["bad"]
 
 
 def _no_cuda(monkeypatch):
@@ -41,9 +45,10 @@ def _no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["make_generator", "init_generator", "resolve_device", "cli",
                                    "make_discriminator", "init_discriminator", "init_vgg",
-                                   "train_cli"])
+                                   "train_cli", "train_cli_knobs", "bench"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
+    from layout2img_tpu_torch import bench
     from layout2img_tpu_torch.cli import sample as sample_cli
     from layout2img_tpu_torch.cli import train as train_cli
     from layout2img_tpu_torch.device import resolve_device
@@ -62,6 +67,10 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
         "init_vgg": lambda: init_vgg(0),
         "train_cli": lambda: train_cli.main(["--steps", "1", "--batch_size", "2", "--ch", "4",
                                              "--out_path", str(tmp_path / "out")]),
+        "train_cli_knobs": lambda: train_cli.main([
+            "--steps", "1", "--batch_size", "2", "--ch", "4", "--mixed_precision", "--fused_d",
+            "--remat", "gd", "--ema_decay", "0.9", "--out_path", str(tmp_path / "out")]),
+        "bench": lambda: bench.main(["--ch", "4", "--no_vgg"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -89,11 +98,17 @@ def test_unported_presets_name_the_roadmap():
 @pytest.mark.parametrize("knob", [dict(fused_d=True), dict(remat="gd"), dict(mixed_precision=True),
                                   dict(ema_decay=0.999), dict(d_obj_budget=8), dict(g_obj_budget=8)])
 def test_unported_train_config_knobs_name_the_roadmap(knob):
-    from layout2img_tpu_torch.train.state import TrainConfig
+    """Every knob of the JAX TrainConfig is ported; what is left unported
+    under each, ``mapping_lr_mult`` for a network with a ``mapping``
+    parameter, names the ROADMAP."""
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 
-    TrainConfig()  # the defaults are the ported path
+    cfg = TrainConfig(**knob)
+    assert all(getattr(cfg, k) == v for k, v in knob.items())
+    net = torch.nn.Module()
+    net.mapping = torch.nn.Linear(2, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**knob)
+        create_train_state(net, net, cfg)
 
 
 def test_unported_discriminators_name_the_roadmap():

@@ -213,6 +213,7 @@ def test_launch_config_covers_the_map(b, c, h, w, o, itemsize):
 
 @pytest.mark.parametrize("b,c,h,w,o", [(8, c, h, h, 31) for h, c in _SERVING]
                          + [(32, c, h, h, 31) for h, c in _SERVING]
+                         + [(128, c, h, h, o) for h, c in _SERVING for o in (8, 12)]
                          + [(2, 48, 9, 13, 3), (2, 48, 9, 13, 64), (1, 200, 33, 17, 8),
                             (128, 1024, 8, 8, 64), (1, 3, 1, 1, 64)])
 def test_backward_config_covers_the_map(b, c, h, w, o):
@@ -239,6 +240,25 @@ def test_backward_config_covers_the_map(b, c, h, w, o):
         assert blocks_per_sm(cfg.threads, cfg.smem_bytes) * cfg.threads // 32 >= 32
     if o == 31 and h == 4 and b == 8:
         assert b * cfg.n_spans * cfg.n_groups >= 256, "about two blocks per SM"
+
+
+@pytest.mark.parametrize("o", [8, 12, 31, 64])
+@pytest.mark.parametrize("h,c", _SERVING)
+def test_buffers_fit_int32_at_the_bench_batch(h, c, o):
+    """At the bench's b=128 (bf16 mixed steps, o=8 on COCO, 12 under VG's
+    budgets, up to the 64 the kernels take) every buffer the three launches
+    index with 32-bit ints (x, dx, the backward's three partial-sum buffers)
+    has under 2^31 elements, the batch fits gridDim.y of both kernels, and
+    the partial sums take at most about 1 GiB of device memory."""
+    b = 128
+    cfg = backward_config(b, c, h, h, o, num_sms=132)
+    fwd = launch_config(b, c, h, h, o, 2, num_sms=132)
+    elements = {"x": b * c * h * h, "part_stats": b * cfg.n_spans * 2 * c,
+                "part_gb": b * cfg.n_spans * 2 * o * c, "part_dm": cfg.n_groups * b * o * h * h}
+    assert max(elements.values()) < 2**31, elements
+    assert b <= 65535 and fwd.n_tiles * fwd.n_groups < 2**31 and cfg.n_spans * cfg.n_groups < 2**31
+    partial_bytes = 4 * (elements["part_stats"] + elements["part_gb"] + elements["part_dm"])
+    assert partial_bytes <= 1.1 * 2**30, partial_bytes
 
 
 @pytest.mark.parametrize("b,c,h,o_full,o_cut", [(2, 64, 16, 31, 15), (8, 1024, 4, 31, 9),

@@ -176,6 +176,21 @@ def test_isla_backward_matches_plain_autograd(cuda_device, dtype, b, c, hw, src_
     _check_backward(cuda_device, dtype, b, c, hw, src_hw, o, relu, "sparse")
 
 
+# the mixed step's bf16 calls at both ends of the forward, at b=128 as the
+# bench runs them, with o=8 (COCO) and o=12 (VG's 31 slots cut by budgets of 12)
+BENCH_SHAPES = [(128, 1024, (4, 4), (64, 64)), (128, 64, (128, 128), (64, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o", [8, 12])
+@pytest.mark.parametrize("b,c,hw,src_hw", BENCH_SHAPES)
+def test_isla_bf16_at_the_bench_shapes(cuda_device, b, c, hw, src_hw, o):
+    """The forward and every gradient in bf16 at the bench's batch and slot
+    counts, at the bars of the tests above."""
+    _check_against_plain(_inputs(o + c, b, o, c, hw, src_hw, torch.bfloat16, cuda_device), True)
+    _check_backward(cuda_device, torch.bfloat16, b, c, hw, src_hw, o, True, "sparse")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,hw,src_hw,o", [BWD_SHAPES[1], BWD_SHAPES[3], BWD_SHAPES[4]])
