@@ -67,7 +67,22 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               their times; the port's bench (``layout2img_tpu_torch/bench.py``)
               in both configurations and the f32 step at b=32; the profiler's
               breakdown of one mixed b=128 step.
-11. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+11. presets -- every other LostGAN experiment of ``cli/presets.py``
+              (``ours_d``, ``context_app``, ``context_nogeo``,
+              ``context_app_nogeo``, ``graph_context_app``, ``lostgan``,
+              ``context_part``, ``ours_d_256``) and ``lostgan64`` + ``d64``,
+              at full width (ch=64, 184 classes, o=8): G and D seeded, saved
+              and reloaded strictly; 3 f32 train steps at b=8 (finite losses,
+              parameters, BN statistics and SN vectors moved, the ISLA
+              launches per step the preset implies: 8 at 64 px, 10 at 128,
+              12 at 256, 30 with 3 part masks, by the counts and the
+              profiler); the ISLA calls of one f32 and one mixed step
+              (h=256 and the part calls among them) against the plain
+              versions, timed (a twentieth of ``--reps``, at least 5); one
+              f32 eval forward at b=2 against the CPU at 2e-3; the f32 and
+              mixed step ms at b=8; then the bench with
+              ``BENCH_MODEL=ours_d_base256`` (mixed, b=32).
+12. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -96,7 +111,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed")
+          "train_mixed", "presets")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -868,13 +883,14 @@ def card_vs_cpu(seed: int, paths: dict, dev, b: int) -> None:
     phase("train", _grad_report("G", g_card["G"], g_cpu["G"], b))
 
 
-def drive_steps(name: str, tag: str, state, step, batches: list, rng, dev) -> tuple[int, int, int]:
+def drive_steps(name: str, tag: str, state, step, batches: list, rng, dev,
+                per_step: int = 10) -> tuple[int, int, int]:
     """The main path of a train phase: the given steps, with the kernels'
     counts set to 0 just before and read just after. Checks finite losses,
-    10 launches of each ISLA kernel per step, f32 masters, and that the
-    parameters, the BN running statistics and the SN u vectors moved.
-    Returns the launches of the forward kernel and of the backward's main
-    and finishing kernels."""
+    ``per_step`` launches of each ISLA kernel per step (the generator's norm
+    calls), f32 masters, and that the parameters, the BN running statistics
+    and the SN u vectors moved. Returns the launches of the forward kernel
+    and of the backward's main and finishing kernels."""
     import numpy as np
     import torch
 
@@ -890,9 +906,9 @@ def drive_steps(name: str, tag: str, state, step, batches: list, rng, dev) -> tu
         sync(dev)
         fwd, bwd = isla_norm.launches - f0, isla_norm_backward.launches - b0
         fin = isla_norm_backward.finish_launches - n0
-        need((fwd, bwd, fin) == (10, 10, 10),
+        need((fwd, bwd, fin) == (per_step,) * 3,
              f"{tag} train step {i + 1}: {fwd} ISLA forward, {bwd} backward and {fin} finishing "
-             "launches, not 10 each")
+             f"launches, not {per_step} each")
         values = {k: v.item() for k, v in metrics.items()}
         need(all(np.isfinite(v) for v in values.values()), f"{tag} train step {i + 1}: non-finite {values}")
         phase(name, f"{tag} b={len(batch['labels'])} step {i + 1}: "
@@ -900,7 +916,7 @@ def drive_steps(name: str, tag: str, state, step, batches: list, rng, dev) -> tu
     launches = (isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches)
     phase(name, f"main path ran the ISLA forward kernel {launches[0]} times, the backward's "
           f"main kernel {launches[1]} times and its finishing kernel {launches[2]} times "
-          f"({len(batches)} steps, 10 each per step)")
+          f"({len(batches)} steps, {per_step} each per step)")
 
     after = {f"G.{k}": v for k, v in gen.state_dict().items()}
     after |= {f"D.{k}": v for k, v in disc.state_dict().items()}
@@ -1170,22 +1186,28 @@ def capture_isla_calls(built) -> list[dict]:
     return calls
 
 
-def check_captured(tag: str, calls: list, want_o: int, reps: int) -> tuple[float, ...]:
-    """Each captured bf16 call's forward (bar 1e-2 of max|plain|) and every
-    gradient of its backward (the direct dx, dmean, dvar, the source mask,
-    gamma, beta; bar 2e-2 of max|plain|, the output gradient zeroed at the
-    ReLU gate's ties) against the plain versions, as the kernel phases hold
-    bf16; then the kernels' and the plain versions' times (L2 flushed).
-    Returns (forward ms, plain ms, bound ms, backward ms, plain ms, bound
-    ms), each summed over the calls."""
+def check_captured(tag: str, calls: list, want_o: int, reps: int, want_calls: int = 10,
+                   dtype=None, name: str = "train_mixed") -> tuple[float, ...]:
+    """Each captured call's forward and every gradient of its backward (the
+    direct dx, dmean, dvar, the source mask, gamma, beta; the output
+    gradient zeroed at the ReLU gate's ties) against the plain versions, as
+    the kernel phases hold them: bf16 (the default) forward 1e-2 and
+    backward 2e-2 of max|plain|, f32 1e-5 and 1e-4; then the kernels' and
+    the plain versions' times (L2 flushed). Returns (forward ms, plain ms,
+    bound ms, backward ms, plain ms, bound ms), each summed over the
+    calls."""
     import torch
 
     from layout2img_tpu_torch.ops.interp import resize_bilinear
     from layout2img_tpu_torch.ops.isla import (_plain_backward, isla_norm, isla_norm_backward,
                                                isla_norm_plain)
 
-    need(len(calls) == 10 and all("grad" in c for c in calls),
-         f"{tag}: captured {len(calls)} ISLA calls, {sum('grad' in c for c in calls)} with gradients")
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype).removeprefix("torch.")
+    f_tol, b_tol = (1e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    need(len(calls) == want_calls and all("grad" in c for c in calls),
+         f"{tag}: captured {len(calls)} ISLA calls, {sum('grad' in c for c in calls)} with "
+         f"gradients, not {want_calls}")
     flush = torch.empty(2**28, dtype=torch.float32, device="cuda")
     sums = [0.0] * 6
     for i, rec in enumerate(calls):
@@ -1194,15 +1216,15 @@ def check_captured(tag: str, calls: list, want_o: int, reps: int) -> tuple[float
         b, c, h, w = x.shape
         o, hs = mask.shape[1], mask.shape[2]
         where = f"{tag} call {i + 1}: b={b} o={o} h={h} c={c} hs={hs} relu={int(relu)}"
-        need(x.dtype == mask.dtype == gamma.dtype == grad.dtype == torch.bfloat16 and o == want_o,
-             f"{where}: not bf16 with o={want_o}: {x.dtype} {mask.dtype} {grad.dtype}")
+        need(x.dtype == mask.dtype == gamma.dtype == grad.dtype == dtype and o == want_o,
+             f"{where}: not {dname} with o={want_o}: {x.dtype} {mask.dtype} {grad.dtype}")
         args = (x, mean, var, eps, mask, gamma, beta)
         with torch.no_grad():
             got = isla_norm(*args, relu=relu).float()
             ref = isla_norm_plain(*args, relu=relu).float()
         f_err, f_scale = (got - ref).abs().max().item(), ref.abs().max().item()
-        need(torch.isfinite(got).all().item() and f_err <= 1e-2 * f_scale,
-             f"{where}: forward off by {f_err} > 1e-2 * {f_scale}")
+        need(torch.isfinite(got).all().item() and f_err <= f_tol * f_scale,
+             f"{where}: forward off by {f_err} > {f_tol} * {f_scale}")
         pre = isla_norm_plain(x.float(), mean, var, eps, mask.float(), gamma.float(), beta.float())
         ties = pre.abs() <= 1e-5 * pre.abs().max() if relu else torch.zeros_like(pre, dtype=torch.bool)
         grad = grad.masked_fill(ties, 0)
@@ -1210,25 +1232,25 @@ def check_captured(tag: str, calls: list, want_o: int, reps: int) -> tuple[float
         want_b = _plain_backward(x.float(), mean, var, eps, mask.float(), gamma.float(), beta.float(),
                                  grad.float(), relu)
         errs = []
-        for name, a, wt in zip(("x", "mean", "var", "mask_src", "gamma", "beta"), got_b, want_b):
+        for gname, a, wt in zip(("x", "mean", "var", "mask_src", "gamma", "beta"), got_b, want_b):
             err, scale = (a.float() - wt).abs().max().item(), wt.abs().max().item()
-            need(torch.isfinite(a.float()).all().item() and err <= 2e-2 * scale,
-                 f"{where}: backward off in d{name}: {err} > 2e-2 * {scale}")
-            errs.append(f"d{name} {err / max(scale, 1e-30):.1e}")
+            need(torch.isfinite(a.float()).all().item() and err <= b_tol * scale,
+                 f"{where}: backward off in d{gname}: {err} > {b_tol} * {scale}")
+            errs.append(f"d{gname} {err / max(scale, 1e-30):.1e}")
         live = int((resize_bilinear(mask.float(), (h, w)) != 0).sum().item())
-        bound_f, bound_b = isla_cost(x, mask, live, "bfloat16")[0], isla_bwd_cost(x, mask, live, "bfloat16")[0]
+        bound_f, bound_b = isla_cost(x, mask, live, dname)[0], isla_bwd_cost(x, mask, live, dname)[0]
         with torch.no_grad():
             f_ms = time_ms(lambda: isla_norm(*args, relu=relu), reps, flush)[0]
             pf_ms = time_ms(lambda: isla_norm_plain(*args, relu=relu), max(3, reps // 4), flush)[0]
         b_ms = time_ms(lambda: isla_norm_backward(*args, grad, relu), reps, flush)[0]
         pb_ms = time_ms(lambda: _plain_backward(*args, grad, relu), max(3, reps // 4), flush)[0]
-        phase("train_mixed", f"{where}: forward rel_err {f_err / f_scale:.1e} (bar 1e-2), backward "
-              f"rel_err {', '.join(errs)} (bar 2e-2, {int(ties.sum())} gate ties); forward "
+        phase(name, f"{where} {dname}: forward rel_err {f_err / f_scale:.1e} (bar {f_tol:g}), "
+              f"backward rel_err {', '.join(errs)} (bar {b_tol:g}, {int(ties.sum())} gate ties); forward "
               f"{f_ms:.5f} ms (plain {pf_ms:.5f}, bound {bound_f:.5f}), backward {b_ms:.5f} ms "
               f"(plain {pb_ms:.5f}, bound {bound_b:.5f})")
         for j, v in enumerate((f_ms, pf_ms, bound_f, b_ms, pb_ms, bound_b)):
             sums[j] += v
-    phase("train_mixed", f"{tag}: the ten bf16 calls of one step: forward {sums[0]:.5f} ms (plain "
+    phase(name, f"{tag}: the {len(calls)} {dname} calls of one step: forward {sums[0]:.5f} ms (plain "
           f"{sums[1]:.5f}, bound {sums[2]:.5f}), backward {sums[3]:.5f} ms (plain {sums[4]:.5f}, "
           f"bound {sums[5]:.5f})")
     return tuple(sums)
@@ -1316,6 +1338,153 @@ def train_mixed_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | Non
     return out
 
 
+# the presets phase: (experiment, generator preset, D preset), the slice's
+# LostGAN experiments (cli/presets.py) and the 64px pair
+PRESET_RUNS = (("ours_d", "ours_d_base128", "d128_app"), ("context_app", "context128", "d128_app"),
+               ("context_nogeo", "context128_nogeo", "d128"),
+               ("context_app_nogeo", "context128_nogeo", "d128_app"),
+               ("graph_context_app", "graph128", "d128_app"), ("lostgan", "lostgan128", "d128"),
+               ("context_part", "context128_part", "d128"), ("ours_d_256", "ours_d_base256", "d256"),
+               ("lostgan64", "lostgan64", "d64"))
+COCO_CLASSES, COCO_OBJ = 184, 8
+
+
+def presets_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
+    """Every LostGAN experiment of the slice and the 64px pair at full width
+    (ch=64, 184 classes, COCO-shaped batches: o=8 with 3-8 objects): G and D
+    seeded, saved and reloaded strictly on the card; 3 f32 train steps at
+    b=8 (finite losses; parameters, BN statistics and SN vectors moved; the
+    ISLA launches per step that the preset implies, by the counts and by
+    the profiler); the ISLA calls of one f32 step and of one mixed step
+    captured and held against the plain versions; one f32 eval forward at
+    b=2 against the CPU at 2e-3; the f32 and mixed step ms at b=8. Then the
+    bench with ``BENCH_MODEL=ours_d_base256`` (mixed, b=32). Returns the
+    launches of the three kernels over the phase's steps and the captured
+    calls' sums per experiment."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch import bench
+    from layout2img_tpu_torch.data.synthetic import synthetic_batch
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.models.discriminators import make_discriminator
+    from layout2img_tpu_torch.models.generators import make_generator
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.train.step import make_train_step
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
+
+    t0 = time.perf_counter()
+    vgg = VGGLoss(init_vgg(seed + 2, device=dev))
+    paths = {}
+
+    def saved(kind: str, preset: str) -> str:
+        """The seeded full-width net's state dict, written once per preset."""
+        if (kind, preset) not in paths:
+            init = init_generator if kind == "G" else init_discriminator
+            path = os.path.join(tmp_dir, f"presets_{kind}_{preset}.pth")
+            torch.save(init(seed + (kind == "D"), COCO_CLASSES, preset=preset, device="cpu",
+                            ch=CH).state_dict(), path)
+            paths[(kind, preset)] = path
+        return paths[(kind, preset)]
+
+    def load(kind: str, preset: str, device):
+        make = make_generator if kind == "G" else make_discriminator
+        net = make(preset, COCO_CLASSES, device=device, ch=CH)
+        net.load_state_dict(torch.load(saved(kind, preset), map_location="cpu", weights_only=True),
+                            strict=True)
+        return net
+
+    def trainer(gen_preset: str, disc_preset: str, config):
+        state = create_train_state(load("G", gen_preset, dev), load("D", disc_preset, dev), config)
+        return state, make_train_step(state, config, vgg_loss=vgg)
+
+    totals, out = [0, 0, 0], {}
+    for exp_name, gen_preset, disc_preset in PRESET_RUNS:
+        t1 = time.perf_counter()
+        state, step = trainer(gen_preset, disc_preset, TrainConfig())
+        gen = state.generator
+        size, calls = gen.image_size, gen.isla_calls
+        tag = f"{exp_name} ({gen_preset} + {disc_preset}, {size}px)"
+        phase("presets", f"{tag}: {sum(p.numel() for p in gen.parameters())} + "
+              f"{sum(p.numel() for p in state.discriminator.parameters())} parameters, seeded, "
+              f"saved and reloaded strict; {calls} ISLA calls per forward")
+        data_rng = np.random.default_rng(seed + 11)
+        batches = []
+        for _ in range(3):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+                data_rng, B, size, COCO_OBJ, COCO_CLASSES).items()}
+            batch["labels"] = batch["labels"].long()
+            batches.append(batch)
+        rng = torch.Generator(device=dev).manual_seed(seed)
+        launches = drive_steps("presets", f"{exp_name} f32", state, step, batches, rng, dev,
+                               per_step=calls)
+        totals = [a + b for a, b in zip(totals, launches)]
+        names = device_kernels([lambda: step(batches[0], rng)])
+        seen = [sum(k in n for n in names) for k in ("isla_norm_kernel", "isla_norm_bwd_kernel",
+                                                     "isla_norm_bwd_finish_kernel")]
+        need(seen == [calls] * 3, f"{tag}: the profiler saw {seen} ISLA forward, backward and "
+                                  f"finishing kernels in one f32 step, not {calls} each")
+        f32_ms = time_ms(lambda: step(batches[0], rng), 5)
+        built = SimpleNamespace(step=step, batch=batches[0], rng=rng)
+        f32_sums = check_captured(f"{exp_name} f32 b={B}", capture_isla_calls(built), COCO_OBJ,
+                                  reps, calls, torch.float32, "presets")
+        del state, step, built
+
+        state, step = trainer(gen_preset, disc_preset, TrainConfig(mixed_precision=True))
+        built = SimpleNamespace(step=step, batch=batches[0], rng=rng)
+        bf_sums = check_captured(f"{exp_name} mixed b={B}", capture_isla_calls(built), COCO_OBJ,
+                                 reps, calls, torch.bfloat16, "presets")
+        mixed_ms = time_ms(lambda: step(batches[0], rng), 5)
+        del state, step, built, batches
+
+        # one f32 eval forward at b=2, card against CPU
+        layout = synthetic_layouts_np(seed + 13, 2, size)
+        g_cpu = torch.Generator().manual_seed(seed + 13)
+        args = (torch.randn(2, COCO_OBJ, 128, generator=g_cpu), layout["boxes"], layout["labels"],
+                torch.randn(2, 128, generator=g_cpu))
+        with torch.inference_mode():
+            want = load("G", gen_preset, torch.device("cpu"))(*args)
+            got = load("G", gen_preset, dev)(*(t.to(dev) for t in args)).cpu()
+        diff = (got - want).abs().max().item()
+        need(got.shape == (2, 3, size, size) and torch.isfinite(got).all().item() and diff <= 2e-3,
+             f"{tag}: card vs CPU f32 eval forward differ by {diff} > 2e-3")
+        phase("presets", f"{tag}: f32 b=2 eval forward card vs CPU max_abs_diff={diff:.3e} "
+              f"(bar 2e-3); step b={B}: f32 {f32_ms[0]:.3f} ms [{f32_ms[1]:.3f}, {f32_ms[2]:.3f}], "
+              f"mixed {mixed_ms[0]:.3f} ms [{mixed_ms[1]:.3f}, {mixed_ms[2]:.3f}] on {card}; "
+              f"{time.perf_counter() - t1:.1f}s")
+        out[exp_name] = {"f32": f32_sums, "bf16": bf_sums, "f32_ms": f32_ms[0],
+                         "mixed_ms": mixed_ms[0], "calls": calls}
+        torch.cuda.empty_cache()
+
+    cfg = bench.BenchConfig(batch=32, scan=3, scans=2, model="ours_d_base256")
+    rate = bench.run(cfg, dev)
+    phase("presets", f"bench BENCH_MODEL=ours_d_base256 (b={cfg.batch}, o={cfg.obj}, "
+          f"{cfg.classes} classes, mixed, D = d256 with the app head): {rate['img_s']:.1f} img/s, "
+          f"step {rate['median_ms']:.3f} ms median [{rate['p25_ms']:.3f}, {rate['p75_ms']:.3f}] "
+          f"over {len(rate['step_ms'])} steps, peak {rate['peak_gib']:.2f} GiB allocated on {card}; "
+          "bench line " + json.dumps(rate["line"]))
+    torch.cuda.empty_cache()
+    phase("presets", f"main path ran the ISLA forward kernel {totals[0]} times, the backward's "
+          f"main kernel {totals[1]} and its finishing kernel {totals[2]} times "
+          f"({len(PRESET_RUNS)} experiments x 3 f32 steps); {time.perf_counter() - t0:.1f}s")
+    return {"launches": tuple(totals), "runs": out, "bench": rate}
+
+
+def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
+    """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch.data.synthetic import synthetic_layouts
+
+    layout = synthetic_layouts(np.random.default_rng(seed), b, COCO_OBJ, COCO_CLASSES)
+    return {"boxes": torch.from_numpy(layout["boxes"]),
+            "labels": torch.from_numpy(layout["labels"]).long()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1391,6 +1560,19 @@ def main(argv=None) -> int:
                             f"bound_ms_bf16_{suffix}": f_bound})
                 bwd.update({f"ms_bf16_{suffix}": b_ms, f"plain_ms_bf16_{suffix}": pb_ms,
                             f"bound_ms_bf16_{suffix}": b_bound})
+        if "presets" in phases:
+            pre = presets_phase(args.seed, tmp_dir, dev, card, max(5, args.reps // 20))
+            (fwd["launches_presets"], bwd["launches_presets"],
+             fin["launches_presets"]) = pre["launches"]
+            for exp_name, run in pre["runs"].items():
+                for dname in ("f32", "bf16"):
+                    f_ms, pf_ms, f_bound, b_ms, pb_ms, b_bound = run[dname]
+                    fwd[f"ms_{dname}_{exp_name}"] = f_ms
+                    fwd[f"plain_ms_{dname}_{exp_name}"] = pf_ms
+                    fwd[f"bound_ms_{dname}_{exp_name}"] = f_bound
+                    bwd[f"ms_{dname}_{exp_name}"] = b_ms
+                    bwd[f"plain_ms_{dname}_{exp_name}"] = pb_ms
+                    bwd[f"bound_ms_{dname}_{exp_name}"] = b_bound
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

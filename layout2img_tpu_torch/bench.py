@@ -1,20 +1,23 @@
 """Benchmark of the port's train step (counterpart of the JAX package's
 ``bench.py``): the full GAN train step (G + D, hinge + pixel + VGG
-perceptual) at 128x128, the flagship Ours-D context configuration, on the
-GPU.
+perceptual) of one generator preset (default the flagship Ours-D context
+configuration at 128x128) on the GPU. The image size follows the preset,
+and D is ``LayoutDiscriminator(image_size=size, app_head=True)``, as the
+JAX bench builds it.
 
     python -m layout2img_tpu_torch.bench
     BENCH_OBJ=31 BENCH_CLASSES=179 BENCH_VALID_MAX=10 BENCH_D_OBJ_BUDGET=12 \\
         BENCH_G_OBJ_BUDGET=12 python -m layout2img_tpu_torch.bench  # VG shape
 
 Prints ONE JSON line, with the JAX bench's metric name and keys:
-  {"metric": "gan_train_step_images_per_sec_128px", "value": N,
+  {"metric": "gan_train_step_images_per_sec_<size>px", "value": N,
    "unit": "img/s/chip", "vs_baseline": N, "baseline": "..."}
 and logs to stderr the card (``nvidia-smi``'s name and power limit), the
 step's median and quartile ms and the peak memory.
 
 The environment knobs are the JAX bench's, with its defaults:
-``BENCH_BATCH`` (128), ``BENCH_MODEL`` (ours_d_context128), ``BENCH_CLASSES``
+``BENCH_BATCH`` (128), ``BENCH_MODEL`` (ours_d_context128; any of the
+nine generator presets of ``models/generators.py``), ``BENCH_CLASSES``
 (184), ``BENCH_OBJ`` (8 slots), ``BENCH_VALID_MAX`` (0: all; else the real
 objects per layout, the rest pad slots, as VG's o=31 with 6-10 objects),
 ``BENCH_MIXED`` (1: bf16 compute over f32 masters; 0: f32 with TF32 off),
@@ -107,8 +110,8 @@ def build(cfg: BenchConfig, device: torch.device) -> SimpleNamespace:
         f"valid_max={cfg.valid_max}, budgets g={cfg.g_obj_budget} d={cfg.d_obj_budget})")
     gen = init_generator(0, cfg.classes, preset=cfg.model, device=device, ch=cfg.ch)
     size = gen.image_size
-    disc = init_discriminator(1, cfg.classes, device=device, ch=cfg.ch, image_size=size,
-                              remat_blocks=cfg.remat_d_blocks)
+    disc = init_discriminator(1, cfg.classes, preset="d128_app", device=device, ch=cfg.ch,
+                              image_size=size, remat_blocks=cfg.remat_d_blocks)
     if cfg.g_obj_budget:
         why = obj_budget_error(gen)
         if why is not None:

@@ -1,13 +1,16 @@
-"""Sampling CLI (counterpart of ``layout2img_tpu/cli/sample.py``) for the
-Ours-D 128px generator: load a reference-format generator state dict (for
-example one written by ``python -m layout2img_tpu.cli.export_torch --out_g``),
-draw ``--num_img`` truncated-normal samples per layout and write
-``sample{idx}_numb{j}.jpg``.
+"""Sampling CLI (counterpart of ``layout2img_tpu/cli/sample.py``) for any
+LostGAN-family experiment (``--model``, default ``context_app_v2``; the map
+is ``cli/presets.py``): load a reference-format generator state dict (for
+example one written by ``python -m layout2img_tpu.cli.export_torch --out_g``
+or by ``cli.train``) into the experiment's generator, draw ``--num_img``
+truncated-normal samples per layout and write ``sample{idx}_numb{j}.jpg``.
 
-    python -m layout2img_tpu_torch.cli.sample --weights G.pth --dataset synthetic \\
-        --sample_path samples --num_img 2 --batch_size 8
+    python -m layout2img_tpu_torch.cli.sample --model context_app_v2 --weights G.pth \\
+        --dataset synthetic --sample_path samples --num_img 2 --batch_size 8
 
-Runs on the GPU; ``--device cpu`` asks for the CPU.
+Runs on the GPU; ``--device cpu`` asks for the CPU. ``--obj_budget`` is
+refused where compaction is not exact (the v1 mask trunk); the special
+families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ import os
 import numpy as np
 import torch
 
+from layout2img_tpu_torch.cli.presets import experiment
 from layout2img_tpu_torch.data.synthetic import synthetic_layouts
 from layout2img_tpu_torch.device import resolve_device
-from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
+from layout2img_tpu_torch.models.generators import (LostGANGenerator, make_generator,
+                                                   obj_budget_error)
 from layout2img_tpu_torch.sample import make_sample_fn
 from layout2img_tpu_torch.utils.casting import cast_floating
 
@@ -30,6 +35,8 @@ SYNTHETIC_BATCHES = 4
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--model", default="context_app_v2",
+                   help="experiment preset (cli/presets.py) whose generator the weights fill")
     p.add_argument("--weights", required=True, help="reference-format generator .pth")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"],
                    help="COCO and VG loaders are not ported yet")
@@ -44,16 +51,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def load_generator(path: str, device: torch.device) -> LostGANGenerator:
-    """Build the Ours-D generator that a reference-format dict describes and
-    load it with ``strict=True``. Sizes are read off the dict."""
+def load_generator(path: str, device: torch.device,
+                   model: str = "context_app_v2") -> LostGANGenerator:
+    """Build the generator of experiment ``model`` that a reference-format
+    dict describes and load it with ``strict=True``. Sizes are read off the
+    dict."""
+    preset = experiment(model).gen_preset
     sd = torch.load(path, map_location="cpu", weights_only=True)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    gen = make_generator(
-        "ours_d_context128", sd["label_embedding.weight"].shape[0], device=device,
-        ch=sd["fc.weight_orig"].shape[0] // (4 * 4 * 16),
-        num_mask_classes=sd["alpha1"].shape[1],
-    )
+    sizes = dict(ch=sd["fc.weight_orig"].shape[0] // (4 * 4 * 16))
+    if "alpha1" in sd:  # stage masks pick their masks by label
+        sizes["num_mask_classes"] = sd["alpha1"].shape[1]
+    gen = make_generator(preset, sd["label_embedding.weight"].shape[0], device=device, **sizes)
     gen.load_state_dict(sd, strict=True)
     return gen
 
@@ -72,7 +81,10 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    gen = load_generator(args.weights, device)
+    gen = load_generator(args.weights, device, args.model)
+    why = obj_budget_error(gen) if args.obj_budget else None
+    if why is not None:
+        raise SystemExit(f"--obj_budget is not exact for this model: {why}")
     cast_floating(gen, dtype)
     sample = make_sample_fn(gen, z_dim=gen.z_dim, dtype=dtype, obj_budget=args.obj_budget)
     num_classes = gen.label_embedding.num_embeddings

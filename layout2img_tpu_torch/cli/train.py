@@ -1,23 +1,28 @@
-"""Training CLI (counterpart of ``layout2img_tpu/cli/train.py``), minimal: the
-Ours-D 128px generator (``ours_d_context128``) against ``d128_app`` on
-synthetic batches (184 classes, 8 object slots, as the JAX CLI's
-``--dataset synthetic``), from seeded random weights. Each step's metrics go
-to standard output and to ``<out_path>/metrics.jsonl`` as one JSON line; at
-the end ``G.pth`` and ``D.pth`` (reference-format state dicts, which
-``cli.sample --weights`` loads) go to ``out_path``, and with ``--ema_decay``
-also ``G_ema.pth``: the EMA parameters with the live generator's buffers,
-the pair the JAX package samples with.
+"""Training CLI (counterpart of ``layout2img_tpu/cli/train.py``), minimal: any
+LostGAN-family experiment (``--model``, default ``context_app_v2``: the
+Ours-D 128px generator ``ours_d_context128`` against ``d128_app``; the map
+is ``cli/presets.py``) at its own image size, on synthetic batches (184
+classes, 8 object slots, as the JAX CLI's ``--dataset synthetic``), from
+seeded random weights. Each step's metrics go to standard output and to
+``<out_path>/metrics.jsonl`` as one JSON line; at the end ``G.pth`` and
+``D.pth`` (reference-format state dicts, which ``cli.sample --model ...
+--weights`` loads) go to ``out_path``, and with ``--ema_decay`` also
+``G_ema.pth``: the EMA parameters with the live generator's buffers, the
+pair the JAX package samples with.
 
-    python -m layout2img_tpu_torch.cli.train --dataset synthetic --steps 5 \\
-        --batch_size 8 --out_path out [--mixed_precision] [--ema_decay 0.999] \\
+    python -m layout2img_tpu_torch.cli.train --model context_app_v2 --dataset synthetic \\
+        --steps 5 --batch_size 8 --out_path out [--mixed_precision] [--ema_decay 0.999] \\
         [--fused_d] [--remat g|d|gd] [--remat_d_blocks N] \\
         [--g_obj_budget K] [--d_obj_budget K] [--obj_budget_force]
 
 The step's knobs are the JAX CLI's flags, with its meanings
 (``train/step.py``). Without ``--mixed_precision`` the step runs in f32, as
 the JAX package's default ``TrainConfig`` does: TF32 is switched off in
-cuDNN and in matmul. The object budgets are checked against the dataset's
-valid-object counts first (``check_obj_budgets``).
+cuDNN and in matmul. ``--g_obj_budget`` is refused for a generator on which
+compaction is not exact (the v1 mask trunk, ``models/generators.py::
+obj_budget_error``), and the object budgets are checked against the
+dataset's valid-object counts (``check_obj_budgets``). The special families
+(``ours_ed``, ``layout2im``) raise ``NotImplementedError``.
 
 Runs on the GPU; ``--device cpu`` asks for the CPU. The JAX CLI's other
 flags (COCO and VG data, checkpoints and resume, eval hooks) wait for the
@@ -35,20 +40,23 @@ import time
 import numpy as np
 import torch
 
+from layout2img_tpu_torch.cli.presets import dataset_spec, experiment
 from layout2img_tpu_torch.data.synthetic import synthetic_batch, synthetic_valid_object_counts
 from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.losses.perceptual import VGGLoss
+from layout2img_tpu_torch.models.generators import obj_budget_error
 from layout2img_tpu_torch.train.state import REMAT_MODES, TrainConfig, create_train_state
 from layout2img_tpu_torch.train.step import make_train_step
 from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
 
-SYNTHETIC_CLASSES, SYNTHETIC_OBJECTS = 184, 8  # the JAX CLI's synthetic spec
-IMAGE_SIZE = 128
+SYNTHETIC_CLASSES, SYNTHETIC_OBJECTS = dataset_spec("synthetic")
 logger = logging.getLogger(__name__)
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--model", default="context_app_v2",
+                   help="experiment preset (cli/presets.py): G, D and image size")
     p.add_argument("--dataset", default="synthetic", choices=["synthetic"],
                    help="COCO and VG loaders are not ported yet")
     p.add_argument("--steps", type=int, default=10)
@@ -124,14 +132,20 @@ def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     device = resolve_device(args.device)
+    exp = experiment(args.model)
     check_obj_budgets(synthetic_valid_object_counts(SYNTHETIC_OBJECTS), args)
+    gen = init_generator(args.seed, SYNTHETIC_CLASSES, preset=exp.gen_preset, device=device,
+                         ch=args.ch)
+    if args.g_obj_budget:
+        why = obj_budget_error(gen)
+        if why is not None:
+            raise SystemExit(f"--g_obj_budget is not exact for this model: {why}")
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     config = TrainConfig(mixed_precision=args.mixed_precision, ema_decay=args.ema_decay,
                          fused_d=args.fused_d, remat=args.remat, d_obj_budget=args.d_obj_budget,
                          g_obj_budget=args.g_obj_budget)
-    gen = init_generator(args.seed, SYNTHETIC_CLASSES, device=device, ch=args.ch)
-    disc = init_discriminator(args.seed + 1, SYNTHETIC_CLASSES, device=device, ch=args.ch,
-                              remat_blocks=args.remat_d_blocks)
+    disc = init_discriminator(args.seed + 1, SYNTHETIC_CLASSES, preset=exp.disc_preset,
+                              device=device, ch=args.ch, remat_blocks=args.remat_d_blocks)
     vgg = None if args.no_vgg else VGGLoss(init_vgg(args.seed + 2, device=device))
     state = create_train_state(gen, disc, config)
     step = make_train_step(state, config, vgg_loss=vgg)
@@ -142,8 +156,8 @@ def main(argv=None):
     with open(os.path.join(args.out_path, "metrics.jsonl"), "w") as log:
         for i in range(args.steps):
             t0 = time.perf_counter()
-            batch = synthetic_batch(data_rng, args.batch_size, IMAGE_SIZE, SYNTHETIC_OBJECTS,
-                                    SYNTHETIC_CLASSES)
+            batch = synthetic_batch(data_rng, args.batch_size, exp.image_size,
+                                    SYNTHETIC_OBJECTS, SYNTHETIC_CLASSES)
             batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
             batch["labels"] = batch["labels"].long()
             metrics = {k: float(v) for k, v in step(batch, z_rng).items()}

@@ -1,18 +1,25 @@
 """LostGAN-family generator (counterpart of ``layout2img_tpu/models/generators.py``).
 
-This slice ports the Ours-D path (``stage_masks=True, context="attention",
-mask_trunk="v2"``): label embedding, box-geometric context attention, v2
-mask regression splatted into the boxes, then upsampling ``GenResBlock``s
-whose ISLA norms modulate with alpha-gated stage masks (a PSP mask head on
-the penultimate block at 128 px), and a BN-relu-SNConv-tanh RGB head.
+One configurable module covers the family's nine presets
+(``_GENERATOR_PRESETS``, the JAX package's): the label embedding; a context
+over the per-object style vectors (none, box-geometric attention with or
+without its geometry term, or the GCN); mask regression (the v2
+InstanceNorm trunk, or the v1 BN trunk, optionally with 3 part masks)
+splatted into the boxes; then upsampling ``GenResBlock``s whose ISLA norms
+modulate with either alpha-gated per-stage masks (``stage_masks``: each
+block but the last predicts per-class masks for the next, with a PSP head
+on the penultimate block at 128 px) or the one regressed layout in every
+block; and a BN-relu-SNConv-tanh RGB head.
 
-Images are NCHW, (b, 3, h, w); masks (b, o, h, w); vectors (b, o, d).
-The JAX call's ``train`` flag is the module's mode here: ``.train()`` runs
-the batch-statistics BNs and the spectral-norm power iterations, ``.eval()``
-the running statistics. Its ``deterministic`` flag is the forward's
-argument of that name (False turns on the PSP head's dropout).
-Module names are the reference state-dict names, so a dict written by
-``layout2img_tpu.cli.export_torch`` loads with ``strict=True``.
+Images are NCHW, (b, 3, h, w); masks (b, o, h, w), or (b, o, P, h, w)
+with parts; vectors (b, o, d). The JAX call's ``train`` flag is the
+module's mode here: ``.train()`` runs the batch-statistics BNs and the
+spectral-norm power iterations, ``.eval()`` the running statistics. Its
+``deterministic`` flag is the forward's argument of that name (False turns
+on the PSP head's and the GCN's dropout). Module names are the reference
+state-dict names, so a dict written by ``layout2img_tpu.cli.export_torch``
+loads with ``strict=True``; the 64px generator names its blocks
+``res2..res5`` as the reference does (the exporter's ``res_start=2``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from torch import nn
 from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.nn.attention import BoxMultiHeadedAttention
 from layout2img_tpu_torch.nn.blocks import GenResBlock
-from layout2img_tpu_torch.nn.mask_regress import MaskRegressNetV2
+from layout2img_tpu_torch.nn.gcn import GraphFunc
+from layout2img_tpu_torch.nn.mask_regress import MaskRegressNet, MaskRegressNetV2
 from layout2img_tpu_torch.nn.norms import SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense
 from layout2img_tpu_torch.ops.bbox import bbox_mask
@@ -41,53 +49,78 @@ def _channel_schedule(image_size: int) -> tuple[list[int], list[int]]:
     return mult[:-1], mult[1:]
 
 
-_ROADMAP_PRESETS = "ROADMAP.md §1 'Slices still to port', item 2 (remaining LostGAN presets)"
+_ROADMAP_SPECIAL = "ROADMAP.md §1 'Slices still to port', item 5 (special families)"
 
 
 class LostGANGenerator(nn.Module):
     def __init__(self, num_classes: int, image_size: int = 128, ch: int = 64, z_dim: int = 128,
-                 emb_dim: int = 180, output_dim: int = 3, context: str = "attention",
-                 use_geometry: bool = True, stage_masks: bool = True, mask_trunk: str = "v2",
+                 emb_dim: int = 180, output_dim: int = 3, context: str = "none",
+                 use_geometry: bool = True, stage_masks: bool = False, mask_trunk: str = "v2",
                  num_mask_classes: int = 184, map_size: int = 64, hard_mask_size: int = 0,
                  rgb_head: bool = True, parts: int = 1, legacy_attention: bool = False):
         super().__init__()
-        if not (context == "attention" and stage_masks and mask_trunk == "v2"
-                and rgb_head and parts == 1):
-            raise NotImplementedError(
-                "only the Ours-D path (context='attention', stage_masks=True, mask_trunk='v2', "
-                f"rgb_head=True, parts=1) is ported; the others wait for {_ROADMAP_PRESETS}")
-        if num_classes > num_mask_classes:
+        if not rgb_head:
+            raise NotImplementedError("the feature-only generator (rgb_head=False) serves the "
+                                      f"fg/bg family, not ported yet: {_ROADMAP_SPECIAL}")
+        if context not in ("none", "attention", "graph"):
+            raise ValueError(f"unknown context {context!r}")
+        if mask_trunk not in ("v1", "v2"):
+            raise ValueError(f"unknown mask_trunk {mask_trunk!r}")
+        if parts != 1 and (mask_trunk != "v1" or stage_masks):
+            raise ValueError("part masks use the v1 trunk without stage masks")
+        if stage_masks and num_classes > num_mask_classes:
             raise ValueError(f"num_classes {num_classes} exceeds num_mask_classes "
                              f"{num_mask_classes}: stage masks are picked by label")
         self.image_size = image_size
         self.ch = ch
         self.z_dim = z_dim
+        self.stage_masks = stage_masks
+        self.mask_trunk = mask_trunk
+        self.parts = parts
         self.num_mask_classes = num_mask_classes
         self.hard_mask_size = hard_mask_size or map_size
         self.legacy_attention = legacy_attention
         num_w = z_dim + emb_dim
 
         self.label_embedding = nn.Embedding(num_classes, emb_dim)
-        self.context = BoxMultiHeadedAttention(1, num_w, use_geometry=use_geometry,
-                                               legacy_view=legacy_attention)
-        self.mask_regress = MaskRegressNetV2(num_w, map_size=map_size)
+        if context == "attention":
+            self.context = BoxMultiHeadedAttention(1, num_w, use_geometry=use_geometry,
+                                                   legacy_view=legacy_attention)
+        elif context == "graph":
+            self.context = GraphFunc(num_w)
+        else:
+            self.context = None
+        if mask_trunk == "v2":
+            self.mask_regress = MaskRegressNetV2(num_w, map_size=map_size)
+        else:
+            self.mask_regress = MaskRegressNet(num_w, map_size=map_size, num_parts=parts)
         self.fc = SNDense(z_dim, 4 * 4 * 16 * ch)
 
         in_mults, out_mults = _channel_schedule(image_size)
-        n_blocks = len(out_mults)
-        self.n_blocks = n_blocks
+        self.n_blocks = len(out_mults)
+        # the reference's 64px generator numbers its blocks from 2
+        self.res_start = 2 if image_size == 64 else 1
         for i, (in_mult, out_mult) in enumerate(zip(in_mults, out_mults)):
-            is_last = i == n_blocks - 1
+            predict = stage_masks and i < self.n_blocks - 1
             # PSP head on the penultimate block at 128 px (reference
             # resnet_generator_app_v2.py:414); plain conv heads otherwise
-            psp = image_size == 128 and i == n_blocks - 2
-            self.add_module(f"res{i + 1}", GenResBlock(
-                in_mult * ch, out_mult * ch, num_w, upsample=True, predict_mask=not is_last,
-                psp_module=psp, num_mask_classes=num_mask_classes))
-            if not is_last:
+            psp = image_size == 128 and i == self.n_blocks - 2
+            self.add_module(self._block(i), GenResBlock(
+                in_mult * ch, out_mult * ch, num_w, upsample=True, predict_mask=predict,
+                psp_module=psp, num_mask_classes=num_mask_classes, parts=parts))
+            if predict:
                 self.register_parameter(f"alpha{i + 1}",
                                         nn.Parameter(torch.zeros(1, num_mask_classes, 1)))
         self.final = nn.Sequential(SyncBatchNorm(ch), nn.ReLU(), SNConv(ch, output_dim, 3), nn.Tanh())
+
+    def _block(self, i: int) -> str:
+        return f"res{self.res_start + i}"
+
+    @property
+    def isla_calls(self) -> int:
+        """ISLA norm calls (kernel launches on the card) per forward: two per
+        block, one per part each."""
+        return 2 * self.n_blocks * self.parts
 
     def forward(self, z: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
                 z_im: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
@@ -95,17 +128,26 @@ class LostGANGenerator(nn.Module):
         z_im (b, z_dim) -> images (b, 3, h, w) in [-1, 1]."""
         b = z.shape[0]
         w = torch.cat([z, self.label_embedding(labels).to(z.dtype)], dim=-1)  # (b, o, num_w)
-        w = self.context(w, w, w, boxes, labels)
-        bmask = self.mask_regress(w, boxes)  # (b, o, map, map)
+        if isinstance(self.context, GraphFunc):
+            w = self.context(w, labels, deterministic)
+        elif self.context is not None:
+            w = self.context(w, w, w, boxes, labels)
+        bmask = self.mask_regress(w, boxes)  # (b, o, map, map) or (b, o, P, map, map)
 
         x = self.fc(z_im).reshape(b, 16 * self.ch, 4, 4)
+        if not self.stage_masks:
+            layout = bmask.to(x.dtype)
+            for i in range(self.n_blocks):
+                x, _ = getattr(self, self._block(i))(x, w, layout, deterministic)
+            return self.final(x)
+
         hs = self.hard_mask_size
         # masks in the compute dtype: f32 boxes would otherwise promote the
         # whole modulation path under bf16
         hard = bbox_mask(boxes, hs, hs).to(x.dtype)
         stage_bbox = bmask.to(x.dtype)
         for i in range(self.n_blocks):
-            x, smask = getattr(self, f"res{i + 1}")(x, w, stage_bbox, deterministic)
+            x, smask = getattr(self, self._block(i))(x, w, stage_bbox, deterministic)
             if smask is None:
                 continue
             hh, ww = x.shape[-2:]
@@ -119,19 +161,39 @@ class LostGANGenerator(nn.Module):
         return self.final(x)
 
 
-_GENERATOR_PRESETS: dict[str, dict[str, Any] | None] = {
+_GENERATOR_PRESETS: dict[str, dict[str, Any]] = {
+    # train_lostGan.py (resnet_generator_v1_orig.py baseline)
+    "lostgan128": dict(image_size=128, mask_trunk="v1"),
+    "lostgan64": dict(image_size=64, emb_dim=128, mask_trunk="v1"),
+    # train_ours_d.py / train_app.py ("apponly": v2 + stage masks)
+    "ours_d_base128": dict(image_size=128, stage_masks=True),
+    # train_context_app_v2.py (Ours-D final: context + stage masks)
     "ours_d_context128": dict(image_size=128, stage_masks=True, context="attention"),
-    # not ported yet (see _ROADMAP_PRESETS)
-    "lostgan128": None, "lostgan64": None, "ours_d_base128": None, "context128": None,
-    "context128_nogeo": None, "graph128": None, "context128_part": None, "ours_d_base256": None,
+    # train_context_app.py (context, no stage masks)
+    "context128": dict(image_size=128, context="attention", mask_trunk="v1"),
+    # train_context_nogeo.py / train_context_app_nogeo.py
+    "context128_nogeo": dict(image_size=128, context="attention", use_geometry=False,
+                             mask_trunk="v1"),
+    # train_graph_context_app.py
+    "graph128": dict(image_size=128, context="graph", mask_trunk="v1"),
+    # train_context_part.py (3-part masks, resnet_generator_part.py:722-809)
+    "context128_part": dict(image_size=128, context="attention", mask_trunk="v1", parts=3),
+    # 256px (resnet_generator_app_v2.py:509): regress canvas 64, occupancy canvas 128
+    "ours_d_base256": dict(image_size=256, stage_masks=True, hard_mask_size=128),
 }
+# the special families' generators (cli/presets.py), not ported yet
+_SPECIAL_PRESETS = ("bgfg64", "layout2im64")
 
 
 def obj_budget_error(gen: LostGANGenerator) -> str | None:
     """Why compacting the object axis would NOT give the same image, or None.
 
-    The v2 trunk keeps slots independent; the legacy attention scramble
-    mixes the slot/channel layout."""
+    The v2 trunk keeps slots independent; the v1 trunk's BN couples them
+    through its (b*o) batch statistics; the legacy attention scramble mixes
+    the slot/channel layout."""
+    if gen.mask_trunk != "v2":
+        return ("the v1 mask trunk couples object slots through its (b*o) "
+                "BatchNorm statistics — compaction would change the image")
     if gen.legacy_attention:
         return ("legacy_attention's concat scramble mixes the slot/channel "
                 "layout — compaction would change the image")
@@ -142,12 +204,11 @@ def make_generator(preset: str, num_classes: int, device: str | torch.device | N
                    **overrides) -> LostGANGenerator:
     """Build a generator with uninitialized weights on ``device`` (default
     cuda). Fill it with ``load_state_dict`` or ``utils.convert.init_generator``."""
+    if preset in _SPECIAL_PRESETS:
+        raise NotImplementedError(f"preset {preset!r} is not ported yet: {_ROADMAP_SPECIAL}")
     if preset not in _GENERATOR_PRESETS:
         raise ValueError(f"unknown generator preset {preset!r}")
-    cfg = _GENERATOR_PRESETS[preset]
-    if cfg is None:
-        raise NotImplementedError(f"preset {preset!r} is not ported yet: {_ROADMAP_PRESETS}")
     dev = resolve_device(device)
     with torch.device("meta"):
-        gen = LostGANGenerator(num_classes=num_classes, **{**cfg, **overrides})
+        gen = LostGANGenerator(num_classes=num_classes, **{**_GENERATOR_PRESETS[preset], **overrides})
     return gen.to_empty(device=dev).eval()

@@ -74,13 +74,13 @@ class PSPModule(nn.Module):
 class GenResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, num_w: int, hidden_ch: int | None = None,
                  upsample: bool = True, predict_mask: bool = True, psp_module: bool = False,
-                 num_mask_classes: int = 184):
+                 num_mask_classes: int = 184, parts: int = 1):
         super().__init__()
         h_ch = hidden_ch or out_ch
         self.upsample = upsample
-        self.b1 = SpatialAdaptiveNorm(in_ch, num_w)
+        self.b1 = SpatialAdaptiveNorm(in_ch, num_w, parts)
         self.conv1 = SNConv(in_ch, h_ch, 3)
-        self.b2 = SpatialAdaptiveNorm(h_ch, num_w)
+        self.b2 = SpatialAdaptiveNorm(h_ch, num_w, parts)
         self.conv2 = SNConv(h_ch, out_ch, 3)
         self.c_sc = SNConv(in_ch, out_ch, 1) if (in_ch != out_ch or upsample) else None
         if not predict_mask:
@@ -97,7 +97,8 @@ class GenResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor,
                 deterministic: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """x (b, in_ch, h, w); vectors (b, o, num_w); mask (b, o, mh, mw).
+        """x (b, in_ch, h, w); vectors (b, o, num_w); mask (b, o, mh, mw), or
+        (b, o, P, mh, mw) with P parts.
 
         Returns the block output and, with a mask head, the per-class stage
         mask logits (b, num_mask_classes, h', w'). ``deterministic=False``

@@ -12,8 +12,12 @@ already did.
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
 mask-weighted per-object affine, and optionally the ReLU that follows it in
 ``GenResBlock``, as one call of ``ops.isla.isla_norm`` (one kernel launch on
-the card, one more for its gradient). In training it hands the batch
+the card, two more for its gradient). In training it hands the batch
 statistics to that call, and autograd carries their gradients back into x.
+With P > 1 parts (the part-mask generator) it makes P such calls, one per
+part, without the ReLU, sums them and applies the ReLU once: JAX's
+``y * sum_p (G_p + 1) + sum_p B_p`` is ``sum_p [y (G_p + 1) + B_p]``
+exactly, and autograd sums the P backward calls.
 """
 
 from __future__ import annotations
@@ -94,26 +98,41 @@ class InstanceNorm2d(nn.Module):
 
 
 class SpatialAdaptiveNorm(nn.Module):
-    """ISLA norm, parts=1: BN(affine=False) + mask-weighted per-object affine.
+    """ISLA norm: BN(affine=False) + mask-weighted per-object affine.
 
     gamma(p) = sum_o m_o(p) g_o / (sum_o m_o(p) + 1e-6) + 1, beta likewise
     without the +1, where (g_o, b_o) are SN projections of each object's
     style vector. Pad objects carry all-zero masks and so add nothing.
+    With ``parts`` P the projections give P (g, b) pairs per object, parts
+    major (output index p * c + channel), one per mask part.
     """
 
-    def __init__(self, num_features: int, num_w: int):
+    def __init__(self, num_features: int, num_w: int, parts: int = 1):
         super().__init__()
-        self.weight_proj = SNDense(num_w, num_features)
-        self.bias_proj = SNDense(num_w, num_features)
+        self.parts = parts
+        self.weight_proj = SNDense(num_w, num_features * parts)
+        self.bias_proj = SNDense(num_w, num_features * parts)
         self.batch_norm2d = SyncBatchNorm(num_features, affine=False)
 
     def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor,
                 relu: bool = False) -> torch.Tensor:
-        """x (b, c, h, w); vectors (b, o, num_w); mask (b, o, mh, mw) at its own
-        size (resized to x's inside); ``relu`` applies the ReLU in the same pass."""
+        """x (b, c, h, w); vectors (b, o, num_w); mask (b, o, mh, mw), or
+        (b, o, P, mh, mw) with parts, at its own size (resized to x's
+        inside); ``relu`` applies the ReLU in the same pass."""
         x = x.contiguous()
         mean, var = self.batch_norm2d.stats(x)
-        gamma = self.weight_proj(vectors).to(x.dtype).contiguous()
-        beta = self.bias_proj(vectors).to(x.dtype).contiguous()
-        return isla_norm(x, mean, var, self.batch_norm2d.eps, mask.to(x.dtype).contiguous(), gamma,
-                         beta, relu=relu)
+        gamma = self.weight_proj(vectors).to(x.dtype)
+        beta = self.bias_proj(vectors).to(x.dtype)
+        mask = mask.to(x.dtype)
+        eps = self.batch_norm2d.eps
+        if self.parts == 1:
+            return isla_norm(x, mean, var, eps, mask.contiguous(), gamma.contiguous(),
+                             beta.contiguous(), relu=relu)
+        b, o = vectors.shape[:2]
+        c = x.shape[1]
+        gamma = gamma.reshape(b, o, self.parts, c)
+        beta = beta.reshape(b, o, self.parts, c)
+        out = sum(isla_norm(x, mean, var, eps, mask[:, :, p].contiguous(),
+                            gamma[:, :, p].contiguous(), beta[:, :, p].contiguous())
+                  for p in range(self.parts))
+        return torch.relu(out) if relu else out

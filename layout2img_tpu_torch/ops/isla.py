@@ -218,6 +218,18 @@ def _check_cuda(tensors, mean, var, o: int) -> None:
         raise ValueError(f"isla_norm's kernels take 1..{MAX_OBJECTS} objects, got {o}")
     if tensors[0].device.index != torch.cuda.current_device():
         raise ValueError(f"x lies on {tensors[0].device}, not on the current device")
+    _check_int32(**{f"input {i}": t.numel() for i, t in enumerate(tensors)},
+                 batch_grid=tensors[0].shape[0] * 2**15)
+
+
+def _check_int32(**elements: int) -> None:
+    """Raise where a buffer the kernels index with 32-bit ints would hold
+    2^31 elements or more (``batch_grid``: the batch, which is gridDim.y, at
+    most 65535, scaled to that limit)."""
+    over = {k: n for k, n in elements.items() if n >= 2**31}
+    if over:
+        raise ValueError(f"isla_norm's kernels index with 32-bit ints; these buffers are too "
+                         f"large for them (elements): {over}")
 
 
 @functools.cache
@@ -461,7 +473,10 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
         raise ValueError(f"isla_norm_backward has no kernel for device {x.device}")
     _check_cuda((x, mean, var, mask_src, gamma, beta, grad), mean, var, mask_src.shape[1])
     b, c, h, w = x.shape
-    cfg = backward_config(b, c, h, w, mask_src.shape[1], _num_sms(x.device.index))
+    o = mask_src.shape[1]
+    cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
+    _check_int32(part_stats=b * cfg.n_spans * 2 * c, part_gb=b * cfg.n_spans * 2 * o * c,
+                 part_dm=cfg.n_groups * b * o * h * w)
     dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg)
     return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma))
 

@@ -18,7 +18,8 @@ from torch import nn
 
 from layout2img_tpu_torch.train.ema import ema_init
 
-_ROADMAP_MAPPING = "ROADMAP.md §1 'Slices still to port', item 2 (remaining LostGAN presets)"
+_ROADMAP_MAPPING = ("ROADMAP.md §1 'Slices still to port', item 1 (mapping_lr_mult: no LostGAN "
+                    "network has a mapping)")
 REMAT_MODES = ("none", "g", "d", "gd")
 
 

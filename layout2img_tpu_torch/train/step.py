@@ -3,14 +3,14 @@
 As in the JAX step (reference ``train_ours_d.py:119-150``):
 
 - the generator forward runs once, in training mode (batch-statistics BN,
-  one spectral-norm power iteration per layer, PSP dropout live unless
-  ``deterministic``);
+  one spectral-norm power iteration per layer, PSP and GCN dropout live
+  unless ``deterministic``);
 - D update: D on the real batch, then on the detached fake, hinge losses on
-  the image, object and app scores (object terms masked to valid objects);
-  Adam steps D;
+  the image, object and (with D's app head) app scores (object terms
+  masked to valid objects); Adam steps D;
 - G update against the freshly updated D: adversarial image, object and
-  app terms, L1 pixel loss and the VGG perceptual loss; the gradient
-  reaches G only, through the graph of the one forward;
+  (with the app head) app terms, L1 pixel loss and the VGG perceptual loss;
+  the gradient reaches G only, through the graph of the one forward;
 - so each D layer's spectral norm advances three times per step and G's
   once.
 
@@ -105,8 +105,8 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
     "labels": (b, o)} on the networks' device. ``rng`` is a ``torch.Generator``
     on that device; z (b, o, z_dim) and z_im (b, z_dim) are standard normal
     draws from it in the compute dtype, in that order. Given latents are
-    cast to the compute dtype. ``deterministic=True`` turns the PSP dropout
-    off (the JAX step's ``deterministic`` flag). Metrics are f32 scalar
+    cast to the compute dtype. ``deterministic=True`` turns the PSP and GCN
+    dropouts off (the JAX step's ``deterministic`` flag). Metrics are f32 scalar
     tensors, detached."""
     gen, disc = state.generator, state.discriminator
     why = obj_budget_error(gen) if config.g_obj_budget else None
@@ -165,21 +165,23 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
             "d_loss_fake": hinge_d_fake(out_f["image"]),
             "d_loss_robj": hinge_d_real(out_r["object"], valid),
             "d_loss_fobj": hinge_d_fake(out_f["object"], valid),
-            "d_loss_rapp": hinge_d_real(out_r["app"], valid),
-            "d_loss_fapp": hinge_d_fake(out_f["app"], valid),
         }
         d_loss = (config.lamb_obj * (metrics["d_loss_robj"] + metrics["d_loss_fobj"])
-                  + config.lamb_img * (metrics["d_loss_real"] + metrics["d_loss_fake"])
-                  + config.lamb_app * (metrics["d_loss_rapp"] + metrics["d_loss_fapp"]))
+                  + config.lamb_img * (metrics["d_loss_real"] + metrics["d_loss_fake"]))
+        if "app" in out_r:  # a D without the app head adds no app terms and no app metrics
+            metrics["d_loss_rapp"] = hinge_d_real(out_r["app"], valid)
+            metrics["d_loss_fapp"] = hinge_d_fake(out_f["app"], valid)
+            d_loss = d_loss + config.lamb_app * (metrics["d_loss_rapp"] + metrics["d_loss_fapp"])
         _apply_grads(state.d_opt, d_params, d_loss)
 
         # ---- G update, against the updated D ----
         out_g = d_apply(cast(disc), fake, d_boxes, d_labels)
         metrics["g_loss_fake"] = g_adv(out_g["image"])
         metrics["g_loss_obj"] = g_adv(out_g["object"], valid)
-        metrics["g_loss_app"] = g_adv(out_g["app"], valid)
-        g_loss = (config.lamb_obj * metrics["g_loss_obj"] + config.lamb_img * metrics["g_loss_fake"]
-                  + config.lamb_app * metrics["g_loss_app"])
+        g_loss = config.lamb_obj * metrics["g_loss_obj"] + config.lamb_img * metrics["g_loss_fake"]
+        if "app" in out_g:
+            metrics["g_loss_app"] = g_adv(out_g["app"], valid)
+            g_loss = g_loss + config.lamb_app * metrics["g_loss_app"]
         if config.use_pixel_loss:
             metrics["pixel_loss"] = (fake - images).abs().to(torch.float32).mean()
             g_loss = g_loss + metrics["pixel_loss"]

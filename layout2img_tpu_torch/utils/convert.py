@@ -5,12 +5,13 @@ turn the JAX package's variable trees (``params``, ``batch_stats``,
 ``spectral``; numpy arrays) into the reference-format state dicts the port's
 modules are named after. They are this package's own copy of
 ``layout2img_tpu/utils/torch_export.py``'s generator and discriminator
-exporters (Ours-D path, 128px D):
+exporters (every LostGAN preset and D):
 
 - Linear kernel (in, out) -> weight (out, in); conv (kh, kw, in, out) -> (out, in, kh, kw)
 - spectral norm: ``weight_orig``, ``weight_u`` and ``weight_v = normalize(W^T u)``
 - BN stats -> ``running_mean``/``running_var`` and ``num_batches_tracked = 0``
 - alpha (n,) -> (1, n, 1); attention ``geo_proj`` Dense(64 -> h) -> h x ``WGs.{i}``
+- GCN ``gc{1,2}_w`` (in, out) and ``_b`` -> ``context.gc{1,2}.weight`` / ``.bias`` as they are
 - SN embedding table (num, dim) -> ``weight_orig`` as it is
 
 ``vgg19_state_dict_from_jax`` is the inverse of the JAX package's
@@ -31,6 +32,7 @@ from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.losses.perceptual import VGG19_CFG, VGG19Features
 from layout2img_tpu_torch.models.discriminators import LayoutDiscriminator, make_discriminator
 from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
+from layout2img_tpu_torch.nn.gcn import GraphConvolution
 from layout2img_tpu_torch.nn.norms import SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, _SNWeight
 
@@ -98,49 +100,62 @@ class _Converter:
         self.emit(f"{name}.num_batches_tracked", np.asarray(0, np.int64))
 
 
-def generator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX ``LostGANGenerator`` variables (Ours-D path) -> the port's state dict."""
+def generator_state_dict_from_jax(variables: dict, res_start: int = 1) -> dict[str, torch.Tensor]:
+    """JAX ``LostGANGenerator`` variables (every preset) -> the port's state
+    dict, in ``export_lostgan_generator``'s key order. ``res_start`` is the
+    reference's first block number: 1, or 2 for the 64px generator
+    (``res2..res5``), as the exporter takes it.
+
+    An attention context without its geometry term (the nogeo presets) has
+    no ``geo_proj`` in JAX, but the reference's module and its ``.pth``
+    files carry ``context.WGs.*``, unused; they are written as zeros."""
     e = _Converter(variables)
     p = e.params
     e.emit("label_embedding.weight", p["label_embedding"]["embedding"])
 
-    c = p["context"]
-    if "q_proj" not in c:
-        raise NotImplementedError("only the attention context is ported")
-    for i, name in enumerate(("q_proj", "k_proj", "v_proj", "out_proj")):
-        e.linear(f"context.linears.{i}", ("context", name), sn=False)
-    gk, gb = _np(c["geo_proj"]["kernel"]), _np(c["geo_proj"]["bias"])  # (64, h), (h,)
-    for h in range(gk.shape[1]):
-        e.emit(f"context.WGs.{h}.weight", gk[:, h][None, :])
-        e.emit(f"context.WGs.{h}.bias", gb[h:h + 1])
-    for mine, name in (("ln0", "layer_norm0"), ("ln1", "layer_norm")):
-        e.emit(f"context.{name}.weight", c[mine]["scale"])
-        e.emit(f"context.{name}.bias", c[mine]["bias"])
+    c = p.get("context", {})
+    if "q_proj" in c:  # box attention
+        for i, name in enumerate(("q_proj", "k_proj", "v_proj", "out_proj")):
+            e.linear(f"context.linears.{i}", ("context", name), sn=False)
+        geo = c.get("geo_proj", {"kernel": np.zeros((64, 1), np.float32),
+                                 "bias": np.zeros((1,), np.float32)})
+        gk, gb = _np(geo["kernel"]), _np(geo["bias"])  # (64, h), (h,)
+        for h in range(gk.shape[1]):
+            e.emit(f"context.WGs.{h}.weight", gk[:, h][None, :])
+            e.emit(f"context.WGs.{h}.bias", gb[h:h + 1])
+        for mine, name in (("ln0", "layer_norm0"), ("ln1", "layer_norm")):
+            e.emit(f"context.{name}.weight", c[mine]["scale"])
+            e.emit(f"context.{name}.bias", c[mine]["bias"])
+    elif "gc1_w" in c:  # GCN
+        for gc in ("gc1", "gc2"):
+            e.emit(f"context.{gc}.weight", c[f"{gc}_w"])
+            e.emit(f"context.{gc}.bias", c[f"{gc}_b"])
 
     e.linear("fc", ("fc",), sn=True)
 
     blocks = sorted((k for k in p if k.startswith("res")), key=lambda s: int(s[3:]))
-    for blk in blocks:
+    for i, blk in enumerate(blocks):
+        tb = f"res{res_start + i}"
         for sub in ("conv1", "conv2", "c_sc"):
             if sub in p[blk]:
-                e.conv(f"{blk}.{sub}", (blk, sub), sn=True)
+                e.conv(f"{tb}.{sub}", (blk, sub), sn=True)
         for nrm in ("b1", "b2"):
-            e.linear(f"{blk}.{nrm}.weight_proj", (blk, nrm, "weight_proj"), sn=True)
-            e.linear(f"{blk}.{nrm}.bias_proj", (blk, nrm, "bias_proj"), sn=True)
-            e.bn(f"{blk}.{nrm}.batch_norm2d", (blk, nrm, "bn"))
+            e.linear(f"{tb}.{nrm}.weight_proj", (blk, nrm, "weight_proj"), sn=True)
+            e.linear(f"{tb}.{nrm}.bias_proj", (blk, nrm, "bias_proj"), sn=True)
+            e.bn(f"{tb}.{nrm}.batch_norm2d", (blk, nrm, "bn"))
         if "mask_conv1" in p[blk]:  # plain conv stage-mask head
-            e.conv(f"{blk}.conv_mask.0", (blk, "mask_conv1"), sn=False)
-            e.bn(f"{blk}.conv_mask.1", (blk, "mask_bn"))
-            e.conv(f"{blk}.conv_mask.3", (blk, "mask_conv2"), sn=False)
+            e.conv(f"{tb}.conv_mask.0", (blk, "mask_conv1"), sn=False)
+            e.bn(f"{tb}.conv_mask.1", (blk, "mask_bn"))
+            e.conv(f"{tb}.conv_mask.3", (blk, "mask_conv2"), sn=False)
         elif "psp" in p[blk]:  # PSP stage-mask head
             s = 0
             while f"stage{s}_conv" in p[blk]["psp"]:
-                e.conv(f"{blk}.conv_mask.0.stages.{s}.1", (blk, "psp", f"stage{s}_conv"), sn=False)
-                e.bn(f"{blk}.conv_mask.0.stages.{s}.2", (blk, "psp", f"stage{s}_bn"))
+                e.conv(f"{tb}.conv_mask.0.stages.{s}.1", (blk, "psp", f"stage{s}_conv"), sn=False)
+                e.bn(f"{tb}.conv_mask.0.stages.{s}.2", (blk, "psp", f"stage{s}_bn"))
                 s += 1
-            e.conv(f"{blk}.conv_mask.0.bottleneck.0", (blk, "psp", "bottleneck_conv"), sn=False)
-            e.bn(f"{blk}.conv_mask.0.bottleneck.1", (blk, "psp", "bottleneck_bn"))
-            e.conv(f"{blk}.conv_mask.1", (blk, "conv_mask"), sn=False)
+            e.conv(f"{tb}.conv_mask.0.bottleneck.0", (blk, "psp", "bottleneck_conv"), sn=False)
+            e.bn(f"{tb}.conv_mask.0.bottleneck.1", (blk, "psp", "bottleneck_bn"))
+            e.conv(f"{tb}.conv_mask.1", (blk, "conv_mask"), sn=False)
 
     i = 1
     while f"alpha{i}" in p:
@@ -154,24 +169,27 @@ def generator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     for mine, name in (("conv1", "conv1.0"), ("conv2", "conv2.0"),
                        ("conv3a", "conv3.0"), ("conv3b", "conv3.3")):
         e.conv(f"mask_regress.{name}", ("mask_regress", mine), sn=True)
+    for mine, name in (("bn1", "conv1.1"), ("bn2", "conv2.1"), ("bn3", "conv3.1")):
+        if mine in e.stats.get("mask_regress", {}):  # the v1 trunk
+            e.bn(f"mask_regress.{name}", ("mask_regress", mine))
     return {k: torch.from_numpy(np.array(v)) for k, v in e.out.items()}
 
 
 def discriminator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    """JAX ``LayoutDiscriminator`` variables -> the port's state dict, in
-    ``export_lostgan_discriminator``'s key order."""
+    """JAX ``LayoutDiscriminator`` variables (every preset) -> the port's
+    state dict, in ``export_lostgan_discriminator``'s key order."""
     e = _Converter(variables)
     for key in sorted(e.params):
         if key.startswith("block") or key == "app_conv":
             for sub in ("conv1", "conv2", "c_sc"):
                 if sub in e.params[key]:
                     e.conv(f"{key}.{sub}", (key, sub), sn=True)
-        elif key in ("l7", "l_obj", "app"):
+        elif key in ("l7", "l8", "l_im", "l_obj", "app"):
             e.linear(key, (key,), sn=True)
         elif key in ("l_y", "l_y_app"):
             e.embed_sn(key, (key,))
         else:
-            raise NotImplementedError(f"discriminator component {key!r} is not ported")
+            raise ValueError(f"unknown discriminator component {key!r}")
     return {k: torch.from_numpy(np.array(v)) for k, v in e.out.items()}
 
 
@@ -197,7 +215,8 @@ def _init_(gen: nn.Module, g: torch.Generator) -> None:
     """Fill every parameter and buffer of a CPU module from ``g``:
     orthogonal weights as the JAX package initializes them, zero biases,
     identity BN statistics, zero alphas, Gaussian SN vectors, lecun-normal
-    plain convs."""
+    plain convs, and the GCN's weights and biases uniform in
+    ±1/sqrt(out) (the reference's ``GraphConvolution``)."""
 
     def ortho(w: torch.Tensor) -> None:
         mat = torch.empty(w.shape[0], w[0].numel())
@@ -215,6 +234,10 @@ def _init_(gen: nn.Module, g: torch.Generator) -> None:
         elif isinstance(mod, nn.Conv2d):
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(std=fan_in ** -0.5, generator=g)  # lecun normal
+        elif isinstance(mod, GraphConvolution):
+            bound = mod.weight.shape[1] ** -0.5
+            for t in (mod.weight, mod.bias):
+                t.uniform_(-bound, bound, generator=g)
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
         elif isinstance(mod, SyncBatchNorm):

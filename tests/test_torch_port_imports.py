@@ -25,7 +25,8 @@ bad = sorted(m for m in sys.modules
 print(json.dumps({"names": names, "bad": bad}))
 """
 # modules the walk must reach, the train step's knobs and the bench among them
-_MODULES = ("bench", "cli.train", "nn.remat", "train.ema", "train.step", "utils.casting")
+_MODULES = ("bench", "cli.presets", "cli.train", "nn.gcn", "nn.mask_regress", "nn.remat",
+            "train.ema", "train.step", "utils.casting")
 
 
 def test_port_imports_no_jax():
@@ -87,10 +88,14 @@ def test_cpu_is_used_only_when_asked(monkeypatch):
 
 
 def test_unported_presets_name_the_roadmap():
-    from layout2img_tpu_torch.models.generators import make_generator
+    """Every LostGAN preset is ported; the special families' generators
+    name the ROADMAP."""
+    from layout2img_tpu_torch.models.generators import _GENERATOR_PRESETS, make_generator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_generator("lostgan128", 10, device="cpu")
+    assert len(_GENERATOR_PRESETS) == 9
+    for preset in ("bgfg64", "layout2im64"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_generator(preset, 10, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         make_generator("no_such_preset", 10, device="cpu")
 
@@ -112,8 +117,11 @@ def test_unported_train_config_knobs_name_the_roadmap(knob):
 
 
 def test_unported_discriminators_name_the_roadmap():
+    """Every LostGAN D preset is ported; the layout2im family's D names the
+    ROADMAP."""
     from layout2img_tpu_torch.models.discriminators import make_discriminator
 
     for preset in ("d128", "d64", "d256"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_discriminator(preset, 10, device="cpu")
+        assert make_discriminator(preset, 10, device="cpu", ch=2).image_size == int(preset[1:])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_discriminator("layout2im", 10, device="cpu")

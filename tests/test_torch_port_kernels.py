@@ -191,6 +191,20 @@ def test_isla_bf16_at_the_bench_shapes(cuda_device, b, c, hw, src_hw, o):
     _check_backward(cuda_device, torch.bfloat16, b, c, hw, src_hw, o, True, "sparse")
 
 
+# the 256px generator's last norms (a 128-px source mask), at the bench's b=32
+SHAPES_256 = [(32, 128, (128, 128), (128, 128)), (32, 64, (256, 256), (128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,hw,src_hw", SHAPES_256)
+def test_isla_at_the_256px_shapes(cuda_device, dtype, b, c, hw, src_hw):
+    """The forward and every gradient at h=256 with o=8 (COCO), at the bars
+    of the tests above."""
+    _check_against_plain(_inputs(c, b, 8, c, hw, src_hw, dtype, cuda_device), True)
+    _check_backward(cuda_device, dtype, b, c, hw, src_hw, 8, True, "sparse")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,hw,src_hw,o", [BWD_SHAPES[1], BWD_SHAPES[3], BWD_SHAPES[4]])
