@@ -82,7 +82,30 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               f32 eval forward at b=2 against the CPU at 2e-3; the f32 and
               mixed step ms at b=8; then the bench with
               ``BENCH_MODEL=ours_d_base256`` (mixed, b=32).
-12. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+12. data   -- the CLIs' main path on fixture datasets on disk, at full
+              width (``context_app_v2``: ch=64, 128 px, b=8, f32, VGG on):
+              prints whether PIL, h5py and the native decoder are there;
+              writes a COCO-Stuff fixture (64 JPEGs at 640x480, 6-8 objects
+              with stuff; ``--dataset synthetic`` without PIL); trains 2
+              epochs through ``cli.train.main`` (a checkpoint each, metrics
+              and grids every 2 steps), resumes for a third with
+              ``--async_ckpt`` (the step count continues; the resumed-from
+              and the async-written checkpoints, restored on the card, equal
+              their files bit for bit); 10 launches of each ISLA kernel
+              per step and 10 forward launches per grid; a NaN drill (exit 3,
+              the last checkpoint's bytes kept); ``cli.sample --ckpt_dir``
+              on the fixture (20 launches) and ``cli.export_torch`` (its G
+              loads strictly); then, on a second fixture of 1024 JPEGs (16
+              batches of 128 with the flips), per decoder the ms per item on
+              one thread and ``HostDataLoader`` img/s at b=128 with 8 threads
+              and prefetch 4 (the CLI's default: 4 batches decoded at once)
+              and 8 (8 at once), the mixed b=128 step fed by the loader and
+              the prefetch with both loads against the same step on a
+              device-resident batch, and the card's idle share over two
+              traced loader-fed steps;
+              then train and resume on a Visual Genome fixture (o=31, 179
+              classes) when h5py is there.
+13. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -93,6 +116,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -111,7 +135,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets")
+          "train_mixed", "presets", "data")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -1473,6 +1497,391 @@ def presets_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
     return {"launches": tuple(totals), "runs": out, "bench": rate}
 
 
+# the data phase: the CLI's main path on fixture datasets written to disk
+DATA_IMAGES, DATA_B, DATA_VG_IMAGES = 64, 8, 32
+# the host path's timing: 1024 JPEGs and their flips, 16 batches of the bench's b=128
+DATA_RATE_IMAGES, DATA_RATE_B = 1024, 128
+
+
+def _machine_report() -> dict:
+    """What the card's machine has for the host data path; each missing
+    package or library is a line of its own."""
+    import importlib.util
+
+    from layout2img_tpu_torch.data import native
+
+    have = {}
+    for mod in ("PIL", "h5py"):
+        spec = importlib.util.find_spec(mod)
+        have[mod] = spec is not None
+        if spec is None:
+            phase("data", f"{mod}: MISSING on this machine")
+        else:
+            version = getattr(__import__(mod), "__version__", "?")
+            phase("data", f"{mod}: {version}")
+    have["native"] = native.native_available()
+    if have["native"]:
+        phase("data", f"native decoder (native/dataplane.cc, libjpeg): built, "
+              f"{native.library_path().name}")
+    else:
+        err = (native.build_error() or "").strip().splitlines()
+        phase("data", f"native decoder (native/dataplane.cc, libjpeg): NOT BUILT, the loaders "
+              f"decode with PIL: {err[-1] if err else '?'}")
+    return have
+
+
+def _isla_counts() -> tuple[int, int, int]:
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward
+
+    return isla_norm.launches, isla_norm_backward.launches, isla_norm_backward.finish_launches
+
+
+def _reset_isla_counts() -> None:
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward
+
+    isla_norm.launches = isla_norm_backward.launches = isla_norm_backward.finish_launches = 0
+
+
+def _logged(run: str) -> list[dict]:
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def _cli_train(tag: str, argv: list[str], expect_exit: int = 0) -> tuple[int, int, int]:
+    """One in-process ``cli.train.main`` call; returns the ISLA launches it
+    made (counts set to 0 just before, read just after)."""
+    from layout2img_tpu_torch.cli import train as train_cli
+
+    _reset_isla_counts()
+    t0 = time.perf_counter()
+    code = 0
+    try:
+        train_cli.main(argv)
+    except SystemExit as e:  # the NaN guard's exit: checked against expect_exit below
+        code = e.code
+    sync_all()
+    counts = _isla_counts()
+    need(code == expect_exit, f"{tag}: cli.train exited {code}, expected {expect_exit}")
+    phase("data", f"{tag}: cli.train exit {code} in {time.perf_counter() - t0:.1f}s; ISLA forward "
+          f"x{counts[0]}, backward x{counts[1]}, finishing x{counts[2]}")
+    return counts
+
+
+def sync_all() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def _check_train_run(tag: str, run: str, counts, steps: list[int], log_every: int) -> None:
+    """The run's metrics lines, checkpoints and ISLA launches: 10 of each
+    per step, and 10 forward launches per image grid (one per log point)."""
+    lines = _logged(run)
+    got = [ln["step"] for ln in lines]
+    want = [s for s in steps if s % log_every == 0]
+    need(got[len(got) - len(want):] == want, f"{tag}: logged steps {got} do not end with {want}")
+    bad = [ln for ln in lines if not all(math.isfinite(v) for v in ln.values())]
+    need(not bad, f"{tag}: non-finite metrics {bad[:1]}")
+    n, grids = len(steps), len(want)
+    need(counts == (10 * (n + grids), 10 * n, 10 * n),
+         f"{tag}: ISLA launches {counts}, not {(10 * (n + grids), 10 * n, 10 * n)} for {n} steps "
+         f"and {grids} image grids")
+    last = lines[-1]
+    phase("data", f"{tag}: steps {steps[0]}..{steps[-1]}, last logged step {last['step']}: "
+          + " ".join(f"{k}={last[k]:.5f}" for k in ("d_loss", "g_loss", "pixel_loss", "feat_loss")))
+
+
+def _restored_equals_saved(ckpt_dir: str, steps: list[int], dev, model_args) -> None:
+    """Restore each checkpoint of ``steps`` into a freshly seeded full-width
+    state on the card and hold every tensor of it against the file, bit for
+    bit."""
+    import torch
+
+    from layout2img_tpu_torch.cli import train as train_cli
+    from layout2img_tpu_torch.cli.presets import experiment
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+
+    args = train_cli.parse_args(model_args + ["--seed", "99"])
+    exp = experiment(args.model)
+    train_cli.check_img_size(args, exp)
+    gen, disc = train_cli.build_networks(args, exp, dev)
+    state = create_train_state(gen, disc, TrainConfig())
+    mgr = CheckpointManager(ckpt_dir)
+    for step in steps:
+        mgr.restore(state, step)
+        ck = mgr.read(step)
+        n = 0
+        for part, sd in (("generator", gen.state_dict()), ("discriminator", disc.state_dict())):
+            for k, v in ck[part].items():
+                need(torch.equal(sd[k].cpu(), v), f"restored {part}.{k} differs from checkpoint {step}")
+                n += 1
+        for part, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+            for i, st in opt.state_dict()["state"].items():
+                for k, v in st.items():
+                    need(torch.equal(v.cpu(), ck[part]["state"][i][k]),
+                         f"restored {part} state {i}.{k} differs from checkpoint {step}")
+                    n += 1
+        need(state.step == step, f"restored step {state.step}, not {step}")
+        phase("data", f"checkpoint {step} restored on the card into a fresh state: all {n} tensors "
+              "(parameters, SN vectors, BN statistics, Adam moments and steps) equal the file bit "
+              "for bit")
+    del gen, disc, state
+    torch.cuda.empty_cache()
+
+
+def _per_item_ms(ds, n: int = 64) -> float:
+    """Host ms per dataset item (decode, resize, flip, normalize) on one
+    thread, over the first ``n`` items."""
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _loader_rate(ds, card: str, decoder: str, threads: int, prefetch: int) -> float:
+    """HostDataLoader img/s at 128 px over one epoch of b=128 batches. Each
+    batch is built on one pool thread, so ``min(prefetch, threads)`` batches
+    are decoded at once."""
+    from layout2img_tpu_torch.data.coco import HostDataLoader
+
+    loader = HostDataLoader(ds, DATA_RATE_B, seed=0, num_threads=threads, prefetch=prefetch)
+    t0 = time.perf_counter()
+    n = sum(len(b["labels"]) for b in loader)
+    rate = n / (time.perf_counter() - t0)
+    phase("data", f"HostDataLoader, decoder {decoder}: {rate:.1f} img/s at 128 px from 640x480 "
+          f"JPEGs, b={DATA_RATE_B}, {threads} threads, prefetch {prefetch}: "
+          f"{min(threads, prefetch)} batches decoded at once, {n} images in {len(loader)} "
+          f"batches (host clock; the machine of {card})")
+    return rate
+
+
+def _fed_vs_resident(ds, decoder: str, dev, card: str,
+                     loads: tuple[tuple[int, int], ...] = ((8, 4), (8, 8))) -> None:
+    """The mixed b=128 step (the bench's default cell) fed by HostDataLoader
+    through the prefetch, for each (threads, prefetch) of ``loads``, against
+    the same step on one device-resident batch before and after: ms per step
+    by the host clock. A fed run takes one epoch of the fixture: its first
+    ``warm`` steps fill the pipeline and are not timed. Then the card's idle
+    share over two traced loader-fed steps with the last load."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from layout2img_tpu_torch import bench
+    from layout2img_tpu_torch.data.coco import HostDataLoader
+    from layout2img_tpu_torch.data.prefetch import device_prefetch
+
+    cfg = bench.BenchConfig()
+    need(cfg.batch == DATA_RATE_B, f"the bench's batch is {cfg.batch}, not {DATA_RATE_B}")
+    built = bench.build(cfg, dev)
+    warm, n = 4, 10
+    need(len(ds) // cfg.batch >= warm + n,
+         f"the fixture has {len(ds)} items, fewer than {warm + n} batches of {cfg.batch}")
+
+    def fed(threads: int, prefetch: int):
+        loader = HostDataLoader(ds, cfg.batch, seed=0, num_threads=threads, prefetch=prefetch)
+        for batch in device_prefetch(loader, dev, size=2):
+            batch["labels"] = batch["labels"].long()
+            yield batch
+
+    def timed(batches, n: int) -> float:
+        sync_all()
+        t0 = time.perf_counter()
+        for batch in itertools.islice(batches, n):
+            built.step(batch, built.rng)
+        sync_all()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def fed_ms(threads: int, prefetch: int) -> float:
+        batches = fed(threads, prefetch)
+        for batch in itertools.islice(batches, warm):
+            built.step(batch, built.rng)
+        ms = timed(batches, n)
+        batches.close()
+        return ms
+
+    for _ in range(3):
+        built.step(built.batch, built.rng)
+    resident = [timed(itertools.repeat(built.batch), n)]
+    fed_at = {load: fed_ms(*load) for load in loads}
+    resident.append(timed(itertools.repeat(built.batch), n))
+    phase("data", f"mixed b={cfg.batch} step (bench default cell), {n} steps each after {warm} "
+          f"untimed, by the host clock, decoder {decoder}: loader-fed "
+          + ", ".join(f"{ms:.3f} ms/step with {t} threads, prefetch {p} ({min(t, p)} batches "
+                      "decoded at once)" for (t, p), ms in fed_at.items())
+          + f"; device-resident {resident[0]:.3f} / {resident[1]:.3f} ms/step (before / after) "
+          f"on {card}")
+
+    threads, prefetch = loads[-1]
+    batches = fed(threads, prefetch)
+    for batch in itertools.islice(batches, warm):
+        built.step(batch, built.rng)
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in itertools.islice(batches, 2):
+            built.step(batch, built.rng)
+        sync_all()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    batches.close()
+    dev_ms = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_time_total > 0 and not getattr(e, "is_user_annotation", False)
+                 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 2e3
+    need(dev_ms > 0, "the profiler saw no device time in the loader-fed step")
+    phase("data", f"loader-fed mixed b={cfg.batch} step traced ({threads} threads, prefetch "
+          f"{prefetch}): {dev_ms:.3f} ms of device time in {wall_ms:.3f} ms per step, idle share "
+          f"{100 * (1 - dev_ms / wall_ms):.1f}% on {card}")
+    del built
+    torch.cuda.empty_cache()
+
+
+def data_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
+    """Train from on-disk fixture datasets through the CLIs at full width;
+    returns the ISLA launches of the main path (the train, resume and
+    sampling calls)."""
+    import hashlib
+    import shutil
+
+    import torch
+
+    from layout2img_tpu_torch.cli import export_torch
+    from layout2img_tpu_torch.cli import sample as sample_cli
+    from layout2img_tpu_torch.data import synthetic
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    have = _machine_report()
+    root = os.path.join(tmp_dir, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    out = os.path.join(root, "out")
+    common = ["--model", "context_app_v2", "--batch_size", str(DATA_B), "--seed", str(seed),
+              "--out_path", out]
+    if have["PIL"]:
+        t0 = time.perf_counter()
+        _, inst = synthetic.write_synthetic_coco(os.path.join(root, "coco"), DATA_IMAGES, seed=seed)
+        stuff = synthetic.write_synthetic_stuff(os.path.join(root, "coco"), inst, seed=seed)
+        paths = ["--coco_image_dir", os.path.join(root, "coco"), "--coco_instances", inst,
+                 "--coco_stuff", stuff]
+        data = ["--dataset", "coco", *paths]
+        per_epoch = 2 * DATA_IMAGES // DATA_B
+        phase("data", f"fixture COCO-Stuff: {DATA_IMAGES} JPEGs at 640x480, 5 things and 1-3 stuff "
+              f"boxes each, written in {time.perf_counter() - t0:.1f}s")
+    else:
+        phase("data", "PIL missing: the train, resume and drill calls run on --dataset synthetic; no "
+              "JPEG is decoded in this run")
+        data, per_epoch = ["--dataset", "synthetic", "--steps_per_epoch", "16"], 16
+    run = os.path.join(out, data[1], "128", "context_app_v2")
+    ckpt_dir = os.path.join(run, "ckpt")
+    totals = [0, 0, 0]
+
+    def add(counts):
+        for i, c in enumerate(counts):
+            totals[i] += c
+
+    # train 2 epochs, then resume for one more
+    base = [*common, *data, "--save_every_epochs", "1", "--log_every", "2"]
+    counts = _cli_train("train", base + ["--total_epoch", "2"])
+    _check_train_run("train", run, counts, list(range(1, 2 * per_epoch + 1)), 2)
+    add(counts)
+    saved = CheckpointManager(ckpt_dir).all_steps()
+    need(saved == [per_epoch, 2 * per_epoch], f"checkpoints {saved}")
+    counts = _cli_train("resume", base + ["--total_epoch", "1", "--resume", "--async_ckpt"])
+    _check_train_run("resume", run, counts, list(range(2 * per_epoch + 1, 3 * per_epoch + 1)), 2)
+    add(counts)
+    last = 3 * per_epoch
+    saved = CheckpointManager(ckpt_dir).all_steps()
+    need(saved == [per_epoch, 2 * per_epoch, last], f"checkpoints after resume {saved}")
+    with open(os.path.join(run, "log.txt")) as f:
+        need(f"resumed from step {2 * per_epoch}" in f.read(), "the resume did not say its step")
+    _restored_equals_saved(ckpt_dir, [2 * per_epoch, last], dev, [*common, *data])
+
+    # NaN drill: metrics poisoned from 2 steps after the last save
+    path = os.path.join(ckpt_dir, str(last), "state.pt")
+    digest = hashlib.sha256(open(path, "rb").read()).hexdigest()
+    _cli_train("NaN drill", base + ["--total_epoch", "3", "--resume", "--save_every_epochs", "100",
+                                    "--fault_inject_nan_at", str(last + 2)], expect_exit=3)
+    need(CheckpointManager(ckpt_dir).all_steps() == saved, "the NaN drill changed the checkpoints")
+    need(hashlib.sha256(open(path, "rb").read()).hexdigest() == digest,
+         f"the NaN drill changed checkpoint {last}")
+    phase("data", f"NaN drill: exit 3 at step {last + 2}, checkpoints {saved} kept, step {last}'s "
+          "file unchanged")
+
+    # sample from the checkpoint through the kernels, export, load the export strictly
+    sample_dir = os.path.join(root, "samples")
+    _reset_isla_counts()
+    sample_cli.main(["--model", "context_app_v2", "--ckpt_dir", ckpt_dir,
+                     *(data if have["PIL"] else ["--dataset", "synthetic"]),
+                     "--batch_size", str(DATA_B), "--num_img", "1", "--max_layouts", "16",
+                     "--sample_path", sample_dir, "--device", "cuda"])
+    sync_all()
+    counts = _isla_counts()
+    written = sorted(os.listdir(sample_dir))
+    need(len(written) == 16 and counts[0] == 20,
+         f"cli.sample wrote {len(written)} images with {counts[0]} ISLA launches, not 16 and 20")
+    add(counts)
+    g_pth, d_pth = os.path.join(root, "G_export.pth"), os.path.join(root, "D_export.pth")
+    export_torch.main(["--ckpt_dir", ckpt_dir, "--out_g", g_pth, "--out_d", d_pth])
+    gen = sample_cli.load_generator(g_pth, dev)
+    phase("data", f"cli.sample --ckpt_dir: {len(written)} images, ISLA x{counts[0]}; "
+          f"cli.export_torch G loads strictly ({sum(p.numel() for p in gen.parameters())} "
+          "parameters)")
+    del gen
+    torch.cuda.empty_cache()
+
+    # the host data path on this machine's cores, on a fixture of many b=128 batches
+    if have["PIL"]:
+        from layout2img_tpu_torch.data.coco import CocoLayoutDataset
+
+        t0 = time.perf_counter()
+        rate_root = os.path.join(root, "coco_rate")
+        _, rate_inst = synthetic.write_synthetic_coco(rate_root, DATA_RATE_IMAGES, seed=seed)
+        rate_stuff = synthetic.write_synthetic_stuff(rate_root, rate_inst, seed=seed)
+        phase("data", f"fixture COCO-Stuff for the host path: {DATA_RATE_IMAGES} JPEGs at 640x480 "
+              f"written in {time.perf_counter() - t0:.1f}s")
+        decoded = []
+        for use_native in ([True, False] if have["native"] else [False]):
+            decoder = "native (libjpeg)" if use_native else "PIL"
+            ds = CocoLayoutDataset(rate_root, rate_inst, rate_stuff, image_size=128,
+                                   left_right_flip=True, use_native=use_native)
+            phase("data", f"decoder {decoder}: {_per_item_ms(ds):.3f} ms per item on one thread "
+                  "(decode, resize, flip, normalize; host clock)")
+            for threads, prefetch in ((8, 4), (8, 8)):
+                _loader_rate(ds, card, decoder, threads, prefetch)
+            decoded.append((ds, decoder))
+        _fed_vs_resident(*decoded[0], dev=dev, card=card)  # the decoder the CLI takes
+        del decoded, ds
+        shutil.rmtree(rate_root)
+    else:
+        phase("data", "PIL missing: the loader rate and the loader-fed step are not measured")
+
+    # Visual Genome: the same train and resume on a fixture VG (o=31, 179 classes)
+    if have["PIL"] and have["h5py"]:
+        vocab, h5, vg_root = synthetic.write_synthetic_vg(
+            os.path.join(root, "vg"), DATA_VG_IMAGES, objects_per_image=10, num_classes=179,
+            seed=seed)
+        vg = [*common, "--dataset", "vg", "--vg_vocab", vocab, "--vg_h5", h5, "--vg_image_dir",
+              vg_root, "--save_every_epochs", "1", "--log_every", "2"]
+        vg_run = os.path.join(out, "vg", "128", "context_app_v2")
+        per = 2 * DATA_VG_IMAGES // DATA_B
+        counts = _cli_train("vg train", vg + ["--total_epoch", "1"])
+        _check_train_run("vg train", vg_run, counts, list(range(1, per + 1)), 2)
+        add(counts)
+        counts = _cli_train("vg resume", vg + ["--total_epoch", "1", "--resume"])
+        _check_train_run("vg resume", vg_run, counts, list(range(per + 1, 2 * per + 1)), 2)
+        add(counts)
+        saved = CheckpointManager(os.path.join(vg_run, "ckpt")).all_steps()
+        need(saved == [per, 2 * per], f"vg checkpoints {saved}")
+    else:
+        missing = " and ".join(m for m in ("PIL", "h5py") if not have[m])
+        phase("data", f"{missing} missing: the Visual Genome fixture run is skipped")
+    phase("data", f"main path ran the ISLA forward kernel {totals[0]} times, the backward's main "
+          f"kernel {totals[1]} and its finishing kernel {totals[2]} times; "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(totals)
+
+
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
     """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
     import numpy as np
@@ -1573,6 +1982,9 @@ def main(argv=None) -> int:
                     bwd[f"ms_{dname}_{exp_name}"] = b_ms
                     bwd[f"plain_ms_{dname}_{exp_name}"] = pb_ms
                     bwd[f"bound_ms_{dname}_{exp_name}"] = b_bound
+        if "data" in phases:
+            (fwd["launches_data"], bwd["launches_data"],
+             fin["launches_data"]) = data_phase(args.seed, tmp_dir, dev, card)
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

@@ -1,0 +1,56 @@
+"""Export a ``cli.train`` checkpoint as reference-format ``.pth`` files
+(counterpart of ``layout2img_tpu/cli/export_torch.py``).
+
+    python -m layout2img_tpu_torch.cli.export_torch \\
+        --ckpt_dir out/coco/128/context_app_v2/ckpt --out_g G_200.pth --out_d D_200.pth
+
+The port's networks carry the reference's names, so the checkpoint's state
+dicts are already in the reference's format: the generator's (with the EMA
+in place of its parameters when the checkpoint has one, unless
+``--no_ema``) loads with ``strict=True`` in the reference's test scripts and
+in ``cli.sample --weights``; the discriminator's is written under the
+reference's ``obD.`` inner-module prefix, as ``CombineDiscriminator*``
+wrappers hold it (``cli.train --torch_ckpt_d`` strips it).
+``--module_prefix`` prepends ``module.`` (a DataParallel save). The newest
+checkpoint is exported. Runs on the host.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--ckpt_dir", required=True, help="cli.train checkpoint dir")
+    p.add_argument("--out_g", default="", help="output .pth for the generator")
+    p.add_argument("--out_d", default="", help="output .pth for the discriminator")
+    p.add_argument("--no_ema", action="store_true",
+                   help="export the raw G weights even if EMA weights exist")
+    p.add_argument("--module_prefix", action="store_true",
+                   help="prepend 'module.' (DataParallel-style save)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+
+    args = parse_args(argv)
+    if not args.out_g and not args.out_d:
+        raise SystemExit("nothing to do: pass --out_g and/or --out_d")
+    ck = CheckpointManager(args.ckpt_dir).read()
+    prefix = "module." if args.module_prefix else ""
+    if args.out_g:
+        sd = {**ck["generator"], **({} if args.no_ema else ck.get("ema", {}))}
+        torch.save({prefix + k: v for k, v in sd.items()}, args.out_g)
+        print(f"wrote generator (step {ck['step']}"
+              f"{', EMA' if 'ema' in ck and not args.no_ema else ''}) -> {args.out_g}")
+    if args.out_d:
+        torch.save({f"{prefix}obD.{k}": v for k, v in ck["discriminator"].items()}, args.out_d)
+        print(f"wrote discriminator (step {ck['step']}) -> {args.out_d}")
+
+
+if __name__ == "__main__":
+    main()

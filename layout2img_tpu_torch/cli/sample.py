@@ -1,16 +1,30 @@
 """Sampling CLI (counterpart of ``layout2img_tpu/cli/sample.py``) for any
 LostGAN-family experiment (``--model``, default ``context_app_v2``; the map
-is ``cli/presets.py``): load a reference-format generator state dict (for
-example one written by ``python -m layout2img_tpu.cli.export_torch --out_g``
-or by ``cli.train``) into the experiment's generator, draw ``--num_img``
-truncated-normal samples per layout and write ``sample{idx}_numb{j}.jpg``.
+is ``cli/presets.py``): load a generator, iterate layouts, draw
+``--num_img`` truncated-normal samples per layout and write
+``sample{idx}_numb{j}.jpg``.
 
-    python -m layout2img_tpu_torch.cli.sample --model context_app_v2 --weights G.pth \\
-        --dataset synthetic --sample_path samples --num_img 2 --batch_size 8
+    python -m layout2img_tpu_torch.cli.sample --model context_app_v2 \\
+        --ckpt_dir out/coco/128/context_app_v2/ckpt --dataset coco \\
+        --coco_image_dir ... --coco_instances ... --coco_stuff ... --sample_path samples
+
+The generator comes from one of:
+- ``--ckpt_dir``: the newest checkpoint of ``cli.train`` (its EMA when it
+  has one);
+- ``--torch_ckpt``: a reference ``.pth``, run with ``legacy_attention`` as
+  the reference's checkpoints need;
+- ``--weights``: a reference-format dict written by the port
+  (``cli.train``'s ``G.pth``/``G_ema.pth``, ``cli.export_torch``) or by
+  ``python -m layout2img_tpu.cli.export_torch``.
+
+Layouts: ``--dataset coco|vg`` iterates the val split in order (no flips,
+no shuffle; the last batch edge-padded to ``--batch_size`` and its padding
+dropped), up to ``--max_layouts``; ``--dataset synthetic`` (default) draws
+four batches of COCO-shaped layouts over the generator's classes.
 
 Runs on the GPU; ``--device cpu`` asks for the CPU. ``--obj_budget`` is
-refused where compaction is not exact (the v1 mask trunk); the special
-families raise ``NotImplementedError``.
+refused where compaction is not exact (the v1 mask trunk, legacy
+attention); the special families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +35,7 @@ import os
 import numpy as np
 import torch
 
-from layout2img_tpu_torch.cli.presets import experiment
+from layout2img_tpu_torch.cli.presets import dataset_spec, experiment
 from layout2img_tpu_torch.data.synthetic import synthetic_layouts
 from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.models.generators import (LostGANGenerator, make_generator,
@@ -37,34 +51,67 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="context_app_v2",
                    help="experiment preset (cli/presets.py) whose generator the weights fill")
-    p.add_argument("--weights", required=True, help="reference-format generator .pth")
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"],
-                   help="COCO and VG loaders are not ported yet")
+    p.add_argument("--ckpt_dir", default="", help="cli.train checkpoint dir (EMA preferred)")
+    p.add_argument("--torch_ckpt", default="", help="reference .pth generator (legacy attention)")
+    p.add_argument("--weights", default="", help="reference-format generator .pth")
+    p.add_argument("--dataset", default="synthetic", choices=["coco", "vg", "synthetic"])
     p.add_argument("--sample_path", default="./samples")
     p.add_argument("--num_img", type=int, default=5)
+    p.add_argument("--img_size", type=int, default=0, help="0 = the model preset's size")
     p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--max_layouts", type=int, default=0, help="stop after this many (0 = all)")
+    p.add_argument("--truncation", type=float, default=2.0)
     p.add_argument("--obj_budget", type=int, default=0,
                    help="serve only the first K valid-compacted object slots (0 = all)")
     p.add_argument("--bf16", action="store_true", help="serve in bfloat16 (boxes stay f32)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--coco_image_dir", default="datasets/coco/images/val2017")
+    p.add_argument("--coco_instances", default="datasets/coco/annotations/instances_val2017.json")
+    p.add_argument("--coco_stuff", default="datasets/coco/annotations/stuff_val2017.json")
+    p.add_argument("--vg_vocab", default="datasets/vg/vocab.json")
+    p.add_argument("--vg_h5", default="datasets/vg/val.h5")
+    p.add_argument("--vg_image_dir", default="datasets/vg/images")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' must be asked for")
     return p.parse_args(argv)
 
 
-def load_generator(path: str, device: torch.device,
-                   model: str = "context_app_v2") -> LostGANGenerator:
-    """Build the generator of experiment ``model`` that a reference-format
-    dict describes and load it with ``strict=True``. Sizes are read off the
-    dict."""
-    preset = experiment(model).gen_preset
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    sizes = dict(ch=sd["fc.weight_orig"].shape[0] // (4 * 4 * 16))
+def load_generator(weights, device: torch.device, model: str = "context_app_v2",
+                   legacy_attention: bool = False, image_size: int = 0) -> LostGANGenerator:
+    """Build the generator of experiment ``model`` (at ``image_size``, 0: its
+    own) that a reference-format dict (or its ``.pth`` path) describes and
+    load it with ``strict=True``. Sizes are read off the dict."""
+    from layout2img_tpu_torch.utils.reference import reference_state_dict
+
+    exp = experiment(model)
+    sd = reference_state_dict(weights)
+    sizes = dict(ch=sd["fc.weight_orig"].shape[0] // (4 * 4 * 16),
+                 image_size=image_size or exp.image_size)
     if "alpha1" in sd:  # stage masks pick their masks by label
         sizes["num_mask_classes"] = sd["alpha1"].shape[1]
-    gen = make_generator(preset, sd["label_embedding.weight"].shape[0], device=device, **sizes)
+    gen = make_generator(exp.gen_preset, sd["label_embedding.weight"].shape[0], device=device,
+                         legacy_attention=legacy_attention, **sizes)
     gen.load_state_dict(sd, strict=True)
     return gen
+
+
+def checkpoint_generator_dict(ckpt_dir: str) -> dict[str, torch.Tensor]:
+    """The generator's reference-format dict in the newest checkpoint of
+    ``ckpt_dir``, with the EMA in place of its parameters when the
+    checkpoint has one."""
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+
+    ck = CheckpointManager(ckpt_dir).read()
+    return {**ck["generator"], **ck.get("ema", {})}
+
+
+def pad_tail(batch: dict, target: int) -> tuple[dict, int]:
+    """Edge-pad a ragged last batch to ``target`` rows; returns it and the
+    count of real rows."""
+    n = np.asarray(batch["labels"]).shape[0]
+    if n == target:
+        return batch, n
+    reps = np.concatenate([np.arange(n), np.full(target - n, n - 1)])
+    return {k: np.asarray(v)[reps] for k, v in batch.items()}, n
 
 
 def write_images(images: np.ndarray, sample_path: str, first: int, j: int) -> None:
@@ -77,29 +124,50 @@ def write_images(images: np.ndarray, sample_path: str, first: int, j: int) -> No
             os.path.join(sample_path, f"sample{first + k}_numb{j}.jpg"))
 
 
+def layout_batches(args, num_classes: int):
+    """{"boxes", "labels"} numpy batches of the run's layouts."""
+    if args.dataset == "synthetic":
+        rng = np.random.default_rng(args.seed)
+        for _ in range(SYNTHETIC_BATCHES):
+            yield synthetic_layouts(rng, args.batch_size, SYNTHETIC_OBJECTS, num_classes)
+        return
+    from layout2img_tpu_torch.cli.train import build_dataset
+
+    for batch in build_dataset(args, dataset_spec(args.dataset)[1], eval_mode=True):
+        yield {"boxes": batch["boxes"], "labels": batch["labels"]}
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    sources = [s for s in ("ckpt_dir", "torch_ckpt", "weights") if getattr(args, s)]
+    if len(sources) != 1:
+        raise SystemExit("give one of --ckpt_dir, --torch_ckpt and --weights")
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    gen = load_generator(args.weights, device, args.model)
+    weights = (checkpoint_generator_dict(args.ckpt_dir) if args.ckpt_dir
+               else args.torch_ckpt or args.weights)
+    args.img_size = args.img_size or experiment(args.model).image_size
+    gen = load_generator(weights, device, args.model, legacy_attention=bool(args.torch_ckpt),
+                         image_size=args.img_size)
     why = obj_budget_error(gen) if args.obj_budget else None
     if why is not None:
         raise SystemExit(f"--obj_budget is not exact for this model: {why}")
     cast_floating(gen, dtype)
-    sample = make_sample_fn(gen, z_dim=gen.z_dim, dtype=dtype, obj_budget=args.obj_budget)
-    num_classes = gen.label_embedding.num_embeddings
+    sample = make_sample_fn(gen, z_dim=gen.z_dim, truncation=args.truncation, dtype=dtype,
+                            obj_budget=args.obj_budget)
 
     os.makedirs(args.sample_path, exist_ok=True)
-    layout_rng = np.random.default_rng(args.seed)
     z_rng = torch.Generator(device=device).manual_seed(args.seed)
     idx = 0
-    for _ in range(SYNTHETIC_BATCHES):
-        batch = synthetic_layouts(layout_rng, args.batch_size, SYNTHETIC_OBJECTS, num_classes)
+    for batch in layout_batches(args, gen.label_embedding.num_embeddings):
+        batch, n = pad_tail(batch, args.batch_size)
         boxes, labels = torch.from_numpy(batch["boxes"]), torch.from_numpy(batch["labels"])
         for j in range(args.num_img):
-            images = sample(boxes, labels, z_rng).float().cpu().numpy()
+            images = sample(boxes, labels, z_rng).float().cpu().numpy()[:n]
             write_images(images, args.sample_path, idx, j)
-        idx += args.batch_size
+        idx += n
+        if args.max_layouts and idx >= args.max_layouts:
+            break
     print(f"wrote {idx} layouts x {args.num_img} samples to {args.sample_path}")
 
 

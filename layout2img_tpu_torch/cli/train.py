@@ -1,55 +1,70 @@
-"""Training CLI (counterpart of ``layout2img_tpu/cli/train.py``), minimal: any
+"""Training CLI (counterpart of ``layout2img_tpu/cli/train.py``): any
 LostGAN-family experiment (``--model``, default ``context_app_v2``: the
 Ours-D 128px generator ``ours_d_context128`` against ``d128_app``; the map
-is ``cli/presets.py``) at its own image size, on synthetic batches (184
-classes, 8 object slots, as the JAX CLI's ``--dataset synthetic``), from
-seeded random weights. Each step's metrics go to standard output and to
-``<out_path>/metrics.jsonl`` as one JSON line; at the end ``G.pth`` and
-``D.pth`` (reference-format state dicts, which ``cli.sample --model ...
---weights`` loads) go to ``out_path``, and with ``--ema_decay`` also
-``G_ema.pth``: the EMA parameters with the live generator's buffers, the
-pair the JAX package samples with.
+is ``cli/presets.py``) on COCO-Stuff, Visual Genome or synthetic batches,
+with the JAX CLI's flags and their meanings.
 
-    python -m layout2img_tpu_torch.cli.train --model context_app_v2 --dataset synthetic \\
-        --steps 5 --batch_size 8 --out_path out [--mixed_precision] [--ema_decay 0.999] \\
-        [--fused_d] [--remat g|d|gd] [--remat_d_blocks N] \\
-        [--g_obj_budget K] [--d_obj_budget K] [--obj_budget_force]
+    python -m layout2img_tpu_torch.cli.train --model context_app_v2 --dataset coco \\
+        --coco_image_dir ... --coco_instances ... --coco_stuff ... \\
+        [--total_epoch 200] [--batch_size 16] [--resume] [--save_every_epochs 5] \\
+        [--async_ckpt] [--log_every 500] [--mixed_precision] [--ema_decay 0.999] ...
+    python -m layout2img_tpu_torch.cli.train --dataset synthetic --steps 5 --batch_size 8
 
-The step's knobs are the JAX CLI's flags, with its meanings
-(``train/step.py``). Without ``--mixed_precision`` the step runs in f32, as
-the JAX package's default ``TrainConfig`` does: TF32 is switched off in
-cuDNN and in matmul. ``--g_obj_budget`` is refused for a generator on which
-compaction is not exact (the v1 mask trunk, ``models/generators.py::
-obj_budget_error``), and the object budgets are checked against the
-dataset's valid-object counts (``check_obj_budgets``). The special families
-(``ours_ed``, ``layout2im``) raise ``NotImplementedError``.
+The run writes under ``<out_path>/<dataset>/<img_size>/<model>/``:
+``ckpt/<step>/state.pt`` (``train/checkpoint.py``: the whole train state,
+the 5 newest kept), ``metrics.jsonl`` and ``log.txt``, the fake and real
+grids under ``images/`` at each ``--log_every``, and at the end ``G.pth``
+and ``D.pth`` (reference-format state dicts, which ``cli.sample --weights``
+loads) and, with ``--ema_decay``, ``G_ema.pth`` (the EMA parameters with
+the live generator's buffers). ``--steps N`` caps the steps this run takes
+(0: no cap); ``--steps_per_epoch`` sizes a synthetic epoch (default 50).
 
-Runs on the GPU; ``--device cpu`` asks for the CPU. The JAX CLI's other
-flags (COCO and VG data, checkpoints and resume, eval hooks) wait for the
-ROADMAP.
+- Data: the dataset's loader (``data/coco.py``, ``data/vg.py``; the native
+  JPEG decoder where it builds, else PIL) feeds ``data/prefetch.py``, which
+  copies batches to the card two steps ahead. COCO and VG double each
+  epoch with mirrored images; each epoch's order is drawn from
+  ``seed + epoch``, the epoch counted from 0 by each run.
+- Resume (``--resume``) restores the newest checkpoint bit for bit and the
+  step count continues. As in the JAX CLI, the loader's epoch count and the
+  latent generator (seeded with ``--seed``) restart, so a resumed run does
+  not draw the batches and latents an uninterrupted run would have.
+- Metrics reach the host only at ``--log_every`` and before each save.
+- NaN guard (on unless ``--no_nan_guard``): non-finite metrics at a log
+  point or before a save keep the last good checkpoint and exit 3;
+  ``--fault_inject_nan_at N`` poisons the metrics read from step N on.
+- SIGTERM: the step in flight finishes, the state is saved, exit 0.
+- ``--torch_ckpt_g/--torch_ckpt_d`` fine-tune from reference ``.pth``
+  files (the generator with ``legacy_attention``; their Adam moments
+  restart), ``--vgg_weights`` loads torchvision VGG19 features (else seeded
+  random filters), ``--profile_dir`` writes a ``torch.profiler`` trace of
+  steps 10-20, ``--tensorboard`` mirrors the metrics into tensorboardX.
+
+Without ``--mixed_precision`` the step runs in f32 with TF32 off in cuDNN
+and matmul, as the JAX package's default ``TrainConfig`` does. The object
+budgets are checked against the dataset's valid-object counts. The flags of
+later slices raise ``NotImplementedError`` naming their ROADMAP item: eval
+(``--eval_every``, ``--eval_n``, ``--inception_weights``), the special
+families (``--l2i_fusion``, ``--model ours_ed|layout2im``) and multi-GPU
+(``--model_parallel``, ``--mp_mode``, ``--preempt_sync_every``). Runs on the
+GPU; ``--device cpu`` asks for the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import logging
+import math
 import os
-import time
+import signal
 
 import numpy as np
 import torch
 
-from layout2img_tpu_torch.cli.presets import dataset_spec, experiment
-from layout2img_tpu_torch.data.synthetic import synthetic_batch, synthetic_valid_object_counts
+from layout2img_tpu_torch.cli.presets import EXPERIMENTS, dataset_spec, experiment
 from layout2img_tpu_torch.device import resolve_device
-from layout2img_tpu_torch.losses.perceptual import VGGLoss
-from layout2img_tpu_torch.models.generators import obj_budget_error
-from layout2img_tpu_torch.train.state import REMAT_MODES, TrainConfig, create_train_state
-from layout2img_tpu_torch.train.step import make_train_step
-from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
 
 SYNTHETIC_CLASSES, SYNTHETIC_OBJECTS = dataset_spec("synthetic")
+_ROADMAP = "ROADMAP.md §1 'Slices still to port', item"
 logger = logging.getLogger(__name__)
 
 
@@ -57,12 +72,34 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="context_app_v2",
                    help="experiment preset (cli/presets.py): G, D and image size")
-    p.add_argument("--dataset", default="synthetic", choices=["synthetic"],
-                   help="COCO and VG loaders are not ported yet")
-    p.add_argument("--steps", type=int, default=10)
-    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--dataset", default="synthetic", choices=["coco", "vg", "synthetic"],
+                   help="default synthetic (the JAX CLI's default is coco, whose files a "
+                        "checkout does not hold)")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--total_epoch", type=int, default=200)
+    p.add_argument("--steps", type=int, default=0,
+                   help="the most steps this run takes (0 = no cap)")
+    p.add_argument("--steps_per_epoch", type=int, default=0, help="synthetic only (0 = 50)")
+    p.add_argument("--d_lr", type=float, default=1e-4)
+    p.add_argument("--g_lr", type=float, default=1e-4)
+    p.add_argument("--out_path", default="./outputs/tmp")
+    p.add_argument("--img_size", type=int, default=0,
+                   help="0 = the preset's size; smaller sizes are debug runs, larger refused")
     p.add_argument("--ch", type=int, default=64)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resume", action="store_true", help="continue from the newest checkpoint")
+    p.add_argument("--save_every_epochs", type=int, default=5)
+    p.add_argument("--async_ckpt", action="store_true",
+                   help="snapshot the state on the card and write it in a background thread")
+    p.add_argument("--log_every", type=int, default=500,
+                   help="steps between metric lines, image grids and NaN checks")
+    p.add_argument("--no_nan_guard", dest="nan_guard", action="store_false", default=True,
+                   help="do not stop on non-finite metrics (by default: keep the last good "
+                        "checkpoint and exit 3)")
+    p.add_argument("--fault_inject_nan_at", type=int, default=0,
+                   help="drills: poison the metrics read from this step on with NaN (0 = off)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror metrics and grids into tensorboardX event files under <run>/tb")
     p.add_argument("--no_vgg", action="store_true")
     p.add_argument("--mixed_precision", action="store_true",
                    help="bf16 compute over f32 master weights")
@@ -70,7 +107,7 @@ def parse_args(argv=None):
                    help="generator EMA decay (e.g. 0.999); 0 disables. Also writes G_ema.pth")
     p.add_argument("--fused_d", action="store_true",
                    help="one 2b-batch D call for real+fake (score-identical)")
-    p.add_argument("--remat", default="none", choices=list(REMAT_MODES),
+    p.add_argument("--remat", default="none", choices=["none", "g", "d", "gd"],
                    help="recompute the G forward / D calls in the backward (same math)")
     p.add_argument("--remat_d_blocks", type=int, default=0,
                    help="recompute only the first N D trunk blocks (the large activations)")
@@ -82,9 +119,78 @@ def parse_args(argv=None):
                         "slots (0 = all); objects beyond K drop out of the generated image")
     p.add_argument("--obj_budget_force", action="store_true",
                    help="accept a --g_obj_budget below the dataset's most valid objects")
-    p.add_argument("--out_path", default="./outputs/tmp")
+    p.add_argument("--torch_ckpt_g", default="",
+                   help="reference G .pth to fine-tune from (built with legacy_attention)")
+    p.add_argument("--torch_ckpt_d", default="", help="reference D .pth to fine-tune from")
+    p.add_argument("--vgg_weights", default="", help="torchvision vgg19 .pth for the VGG loss")
+    p.add_argument("--profile_dir", default="", help="write a torch.profiler trace of steps 10-20")
+    p.add_argument("--coco_image_dir", default="datasets/coco/images/train2017")
+    p.add_argument("--coco_instances", default="datasets/coco/annotations/instances_train2017.json")
+    p.add_argument("--coco_stuff", default="datasets/coco/annotations/stuff_train2017.json")
+    p.add_argument("--vg_vocab", default="datasets/vg/vocab.json")
+    p.add_argument("--vg_h5", default="datasets/vg/train.h5")
+    p.add_argument("--vg_image_dir", default="datasets/vg/images")
+    # later slices: set, they raise
+    p.add_argument("--eval_every", type=int, default=0, help="not ported (ROADMAP §1 item 4)")
+    p.add_argument("--eval_n", type=int, default=None, help="not ported (ROADMAP §1 item 4)")
+    p.add_argument("--inception_weights", default="", help="not ported (ROADMAP §1 item 4)")
+    p.add_argument("--l2i_fusion", default=None, help="not ported (ROADMAP §1 item 5)")
+    p.add_argument("--model_parallel", type=int, default=1, help="not ported (ROADMAP §1 item 6)")
+    p.add_argument("--mp_mode", default=None, help="not ported (ROADMAP §1 item 6)")
+    p.add_argument("--preempt_sync_every", type=int, default=None,
+                   help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' must be asked for")
     return p.parse_args(argv)
+
+
+def refuse_later_slices(args) -> None:
+    """``NotImplementedError`` naming the ROADMAP item of a set flag that a
+    later slice ports."""
+    later = ((4, "--eval_every", args.eval_every > 0), (4, "--eval_n", args.eval_n is not None),
+             (4, "--inception_weights", bool(args.inception_weights)),
+             (5, "--l2i_fusion", args.l2i_fusion is not None),
+             (6, "--model_parallel", args.model_parallel != 1),
+             (6, "--mp_mode", args.mp_mode is not None),
+             (6, "--preempt_sync_every", args.preempt_sync_every is not None))
+    for item, flag, given in later:
+        if given:
+            raise NotImplementedError(f"{flag} is not ported yet: {_ROADMAP} {item}")
+
+
+def check_img_size(args, exp) -> None:
+    """Set ``args.img_size`` to the preset's size when 0; refuse a larger
+    one, which has no correct model config (``layout2img_tpu/cli/train.py:288-303``)."""
+    if args.img_size == 0:
+        args.img_size = exp.image_size
+    if args.img_size > exp.image_size:
+        alt = next((name for name, e in EXPERIMENTS.items()
+                    if e.image_size == args.img_size and not e.special), None)
+        hint = f" — use --model {alt}" if alt else ""
+        raise SystemExit(f"--model {args.model} is a {exp.image_size}px experiment; --img_size "
+                         f"{args.img_size} has no correct config{hint}. (Sizes below "
+                         f"{exp.image_size} are accepted as debug runs.)")
+
+
+def build_dataset(args, num_objects: int, eval_mode: bool = False):
+    """The run's batch source: a ``HostDataLoader`` over COCO or VG, or a
+    ``SyntheticLayoutDataset``. ``eval_mode``: no flip doubling, no
+    shuffle, the tail batch kept (the reference's test protocol)."""
+    from layout2img_tpu_torch.data.coco import CocoLayoutDataset, HostDataLoader
+    from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
+    from layout2img_tpu_torch.data.vg import VgLayoutDataset
+
+    load = dict(shuffle=not eval_mode, drop_last=not eval_mode)
+    if args.dataset == "coco":
+        ds = CocoLayoutDataset(args.coco_image_dir, args.coco_instances, args.coco_stuff,
+                               image_size=args.img_size, left_right_flip=not eval_mode)
+    elif args.dataset == "vg":
+        ds = VgLayoutDataset(args.vg_vocab, args.vg_h5, args.vg_image_dir,
+                             image_size=args.img_size, max_objects=num_objects - 1,
+                             left_right_flip=not eval_mode)
+    else:
+        return SyntheticLayoutDataset(args.batch_size, args.img_size, num_objects,
+                                      seed=args.seed, steps=args.steps_per_epoch or 50)
+    return HostDataLoader(ds, args.batch_size, seed=args.seed, **load)
 
 
 def check_obj_budgets(counts: np.ndarray | None, args, log: logging.Logger = logger) -> None:
@@ -128,48 +234,220 @@ def ema_state_dict(gen: torch.nn.Module, ema: dict[str, torch.Tensor]) -> dict[s
     return {k: ema.get(k, v) for k, v in gen.state_dict().items()}
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
-    device = resolve_device(args.device)
-    exp = experiment(args.model)
-    check_obj_budgets(synthetic_valid_object_counts(SYNTHETIC_OBJECTS), args)
-    gen = init_generator(args.seed, SYNTHETIC_CLASSES, preset=exp.gen_preset, device=device,
-                         ch=args.ch)
+@torch.no_grad()
+def sample_grid(gen: torch.nn.Module, ema: dict | None, batch: dict, step: int) -> torch.Tensor:
+    """The generator (its EMA when there is one) in eval mode on the batch's
+    layouts, truncated latents seeded with ``step``."""
+    from layout2img_tpu_torch.sample import truncated_normal
+
+    labels, boxes = batch["labels"][:16], batch["boxes"][:16]
+    b, o = labels.shape
+    dev = labels.device
+    rng = torch.Generator(device=dev).manual_seed(step)
+    z = truncated_normal((b, o, gen.z_dim), 2.0, rng, dev, torch.float32)
+    z_im = truncated_normal((b, gen.z_dim), 2.0, rng, dev, torch.float32)
+    gen.eval()
+    try:
+        if ema is None:
+            return gen(z, boxes, labels, z_im)
+        return torch.func.functional_call(gen, ema, (z, boxes, labels, z_im))
+    finally:
+        gen.train()
+
+
+def build_networks(args, exp, device: torch.device):
+    """The experiment's generator and discriminator with seeded random
+    weights (seeds ``--seed`` and ``--seed + 1``); the generator runs the
+    reference's attention scramble when it will take reference weights."""
+    from layout2img_tpu_torch.models.generators import obj_budget_error
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
+
+    num_classes = dataset_spec(args.dataset)[0]
+    gen = init_generator(args.seed, num_classes, preset=exp.gen_preset, device=device, ch=args.ch,
+                         image_size=args.img_size, legacy_attention=bool(args.torch_ckpt_g))
     if args.g_obj_budget:
         why = obj_budget_error(gen)
         if why is not None:
             raise SystemExit(f"--g_obj_budget is not exact for this model: {why}")
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    config = TrainConfig(mixed_precision=args.mixed_precision, ema_decay=args.ema_decay,
-                         fused_d=args.fused_d, remat=args.remat, d_obj_budget=args.d_obj_budget,
-                         g_obj_budget=args.g_obj_budget)
-    disc = init_discriminator(args.seed + 1, SYNTHETIC_CLASSES, preset=exp.disc_preset,
-                              device=device, ch=args.ch, remat_blocks=args.remat_d_blocks)
-    vgg = None if args.no_vgg else VGGLoss(init_vgg(args.seed + 2, device=device))
-    state = create_train_state(gen, disc, config)
-    step = make_train_step(state, config, vgg_loss=vgg)
+    disc = init_discriminator(args.seed + 1, num_classes, preset=exp.disc_preset, device=device,
+                              ch=args.ch, image_size=args.img_size,
+                              remat_blocks=args.remat_d_blocks)
+    return gen, disc
 
-    os.makedirs(args.out_path, exist_ok=True)
-    data_rng = np.random.default_rng(args.seed)
+
+def main(argv=None):
+    from layout2img_tpu_torch.utils.logging import MetricWriter, close_logger, setup_logger
+
+    args = parse_args(argv)
+    refuse_later_slices(args)
+    device = resolve_device(args.device)
+    exp = experiment(args.model)
+    check_img_size(args, exp)
+    loader = build_dataset(args, dataset_spec(args.dataset)[1])
+    check_obj_budgets(getattr(loader, "dataset", loader).valid_object_counts(), args)
+    gen, disc = build_networks(args, exp, device)
+    out_dir = os.path.join(args.out_path, args.dataset, str(args.img_size), args.model)
+    log = setup_logger("layout2img_tpu_torch", out_dir)
+    writer = MetricWriter(out_dir, tensorboard=args.tensorboard)
+    try:
+        train(args, gen, disc, loader, out_dir, log, writer)
+    finally:
+        writer.close()
+        close_logger(log)
+
+
+def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: str,
+          log: logging.Logger, writer) -> None:
+    """The loop of ``layout2img_tpu/cli/train.py::main`` on built networks."""
+    from layout2img_tpu_torch.data.prefetch import device_prefetch
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.train.step import make_train_step
+    from layout2img_tpu_torch.utils.convert import init_vgg
+    from layout2img_tpu_torch.utils.reference import (load_torch_into_state,
+                                                      load_torch_vgg19_features)
+
+    device = next(gen.parameters()).device
+    ds = getattr(loader, "dataset", None)
+    if ds is not None:
+        log.info("%s: %d items, decoder %s", args.dataset, len(ds),
+                 "native (libjpeg)" if ds.use_native else "PIL")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TrainConfig(g_lr=args.g_lr, d_lr=args.d_lr, use_vgg_loss=not args.no_vgg,
+                      mixed_precision=args.mixed_precision, ema_decay=args.ema_decay,
+                      fused_d=args.fused_d, remat=args.remat, d_obj_budget=args.d_obj_budget,
+                      g_obj_budget=args.g_obj_budget)
+    vgg = None
+    if cfg.use_vgg_loss:
+        if args.vgg_weights:
+            vgg = VGGLoss(load_torch_vgg19_features(args.vgg_weights, device))
+        else:
+            log.warning("no --vgg_weights given; using fixed-seed random VGG filters")
+            vgg = VGGLoss(init_vgg(args.seed + 2, device=device))
+    state = create_train_state(gen, disc, cfg)
+    if args.torch_ckpt_g or args.torch_ckpt_d:
+        load_torch_into_state(state, args.torch_ckpt_g or None, args.torch_ckpt_d or None)
+        log.info("fine-tuning from torch checkpoints: G=%s D=%s", args.torch_ckpt_g or "-",
+                 args.torch_ckpt_d or "-")
+
+    ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
+    if args.resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)
+        log.info("resumed from step %d", state.step)
+    if args.async_ckpt:
+        ckpt = AsyncSaver(ckpt)
+    step_fn = make_train_step(state, cfg, vgg_loss=vgg)
+    log.info("training %s on %s (%s): batch %d, %s, from step %d", args.model, args.dataset,
+             device, args.batch_size, "mixed precision" if cfg.mixed_precision else "f32",
+             state.step)
+
+    preempted = {"flag": False}
+    prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
+    latest = {"metrics": None, "step": 0}
+
+    def read_metrics(metrics: dict, step: int) -> dict[str, float]:
+        m = {k: float(v) for k, v in metrics.items()}
+        if args.fault_inject_nan_at and step >= args.fault_inject_nan_at:
+            m["d_loss"] = float("nan")  # --fault_inject_nan_at drill
+        return m
+
+    def metrics_ok() -> bool:
+        """The pre-save check: a divergence between log points must not
+        reach a save."""
+        if not args.nan_guard or latest["metrics"] is None:
+            return True
+        if all(math.isfinite(v) for v in read_metrics(latest["metrics"], latest["step"]).values()):
+            return True
+        log.error("non-finite metrics at step %d (pre-save check) — divergence; keeping the "
+                  "last good checkpoint and exiting 3", latest["step"])
+        return False
+
+    prof = None
     z_rng = torch.Generator(device=device).manual_seed(args.seed)
-    with open(os.path.join(args.out_path, "metrics.jsonl"), "w") as log:
-        for i in range(args.steps):
-            t0 = time.perf_counter()
-            batch = synthetic_batch(data_rng, args.batch_size, exp.image_size,
-                                    SYNTHETIC_OBJECTS, SYNTHETIC_CLASSES)
-            batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-            batch["labels"] = batch["labels"].long()
-            metrics = {k: float(v) for k, v in step(batch, z_rng).items()}
-            line = json.dumps({"step": state.step, "seconds": time.perf_counter() - t0, **metrics})
-            print(line, flush=True)
-            log.write(line + "\n")
+    taken = 0
+    stop = diverged = capped = False
+    try:
+        for epoch in range(args.total_epoch):
+            host = ({k: b[k] for k in ("images", "labels", "boxes")} for b in loader)
+            for batch in device_prefetch(host, device, size=2):
+                batch["labels"] = batch["labels"].long()
+                if args.profile_dir and state.step == 10:
+                    prof = _start_profiler(device)
+                metrics = step_fn(batch, z_rng)
+                taken += 1
+                latest["metrics"], latest["step"] = metrics, state.step
+                if prof is not None and state.step == 20:
+                    _stop_profiler(prof, args.profile_dir, log)
+                    prof = None
+                if state.step % args.log_every == 0:
+                    m = read_metrics(metrics, state.step)
+                    if args.nan_guard and not all(math.isfinite(v) for v in m.values()):
+                        diverged = stop = True
+                        log.error("non-finite metrics at step %d: %s — divergence; keeping the "
+                                  "last good checkpoint (skipping further saves) and exiting 3",
+                                  state.step, {k: v for k, v in m.items() if not math.isfinite(v)})
+                        break
+                    log.info("epoch %d step %d: %s", epoch + 1, state.step,
+                             {k: round(v, 4) for k, v in m.items()})
+                    writer.write(state.step, m)
+                    writer.write_images(state.step, "fake",
+                                        sample_grid(gen, state.ema, batch, state.step))
+                    writer.write_images(state.step, "real", batch["images"][:16])
+                if preempted["flag"]:
+                    stop = True
+                    break
+                if args.steps and taken >= args.steps:
+                    capped = True
+                    break
+            if stop:
+                if not diverged:
+                    log.info("SIGTERM: saving checkpoint at step %d and exiting", state.step)
+                break
+            if capped:
+                break
+            if (epoch + 1) % args.save_every_epochs == 0:
+                if not metrics_ok():
+                    diverged = True
+                    break
+                ckpt.save(state)
+                log.info("saved checkpoint at epoch %d (step %d)", epoch + 1, state.step)
+        if not diverged:
+            if metrics_ok():
+                ckpt.save(state)
+            else:
+                diverged = True
+        ckpt.wait()
+    finally:
+        if prof is not None:
+            _stop_profiler(prof, args.profile_dir, log)
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+    if diverged:
+        raise SystemExit(3)
     written = {"G.pth": gen.state_dict(), "D.pth": disc.state_dict()}
     if state.ema is not None:
         written["G_ema.pth"] = ema_state_dict(gen, state.ema)
     for name, sd in written.items():
-        torch.save(sd, os.path.join(args.out_path, name))
-    print(f"wrote {', '.join(written)} after {state.step} steps to {args.out_path}")
+        torch.save(sd, os.path.join(out_dir, name))
+    log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, profile_dir: str, log: logging.Logger) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
 
 
 if __name__ == "__main__":

@@ -109,11 +109,12 @@ def test_ema_update_formula():
 
 
 def test_train_cli_knob_flags_and_g_ema(tmp_path):
-    out = tmp_path / "run"
     train_cli.main(["--steps", "2", "--batch_size", "2", "--ch", "4", "--no_vgg", "--device",
-                    "cpu", "--out_path", str(out), "--mixed_precision", "--ema_decay", "0.9",
+                    "cpu", "--out_path", str(tmp_path / "run"), "--log_every", "1",
+                    "--mixed_precision", "--ema_decay", "0.9",
                     "--fused_d", "--remat", "gd", "--remat_d_blocks", "2", "--g_obj_budget", "6",
                     "--d_obj_budget", "5", "--obj_budget_force"])
+    out = tmp_path / "run" / "synthetic" / "128" / "context_app_v2"
     lines = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
     assert [ln["step"] for ln in lines] == [1, 2]
     assert all(np.isfinite(v) for ln in lines for v in ln.values())

@@ -22,22 +22,40 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "layout2img_tpu",
                                     "triton"))
-print(json.dumps({"names": names, "bad": bad}))
+lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "tensorboardX"))
+print(json.dumps({"names": names, "bad": bad, "lazy": lazy}))
 """
-# modules the walk must reach, the train step's knobs and the bench among them
-_MODULES = ("bench", "cli.presets", "cli.train", "nn.gcn", "nn.mask_regress", "nn.remat",
-            "train.ema", "train.step", "utils.casting")
+# modules the walk must reach: the train step's knobs, the bench, the data
+# plane, checkpoints, logging, reference weights and every CLI among them
+_MODULES = ("bench", "cli.export_torch", "cli.preprocess_vg", "cli.presets", "cli.sample",
+            "cli.train", "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg",
+            "nn.gcn", "nn.mask_regress", "nn.remat", "train.checkpoint", "train.ema",
+            "train.step", "utils.casting", "utils.logging", "utils.reference")
 
 
-def test_port_imports_no_jax():
+@pytest.fixture(scope="module")
+def imported():
+    """What importing every module of the port (and chip_smoke.py) pulled in,
+    in a fresh interpreter."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    seen = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_port_imports_no_jax(imported):
+    seen = imported
     assert len(seen["names"]) >= 20, seen
     assert {f"layout2img_tpu_torch.{m}" for m in _MODULES} <= set(seen["names"]), seen["names"]
     assert seen["bad"] == [], seen["bad"]
+
+
+def test_port_imports_pil_and_h5py_lazily(imported):
+    """The image, HDF5 and tensorboard packages load where a function uses
+    them, never at import: the card's machine need not have them to import
+    the port."""
+    assert imported["lazy"] == [], imported["lazy"]
 
 
 def _no_cuda(monkeypatch):
@@ -46,7 +64,8 @@ def _no_cuda(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["make_generator", "init_generator", "resolve_device", "cli",
                                    "make_discriminator", "init_discriminator", "init_vgg",
-                                   "train_cli", "train_cli_knobs", "bench"])
+                                   "train_cli", "train_cli_knobs", "bench", "sample_cli_ckpt",
+                                   "train_cli_coco"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
     from layout2img_tpu_torch import bench
@@ -72,6 +91,10 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
             "--steps", "1", "--batch_size", "2", "--ch", "4", "--mixed_precision", "--fused_d",
             "--remat", "gd", "--ema_decay", "0.9", "--out_path", str(tmp_path / "out")]),
         "bench": lambda: bench.main(["--ch", "4", "--no_vgg"]),
+        "sample_cli_ckpt": lambda: sample_cli.main(["--ckpt_dir", str(tmp_path / "ckpt"),
+                                                    "--sample_path", str(tmp_path / "out")]),
+        "train_cli_coco": lambda: train_cli.main(["--dataset", "coco", "--ch", "4",
+                                                  "--out_path", str(tmp_path / "out")]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -333,3 +333,86 @@ def test_build_all_builds_every_source(cuda_device):
     assert {"isla_norm", "isla_norm_bwd"} <= set(seconds)
     for name in seconds:
         assert _build.library_path(name).exists()
+
+
+# ---- the data path and checkpoints on the card (no kernel of their own) ----
+
+@pytest.mark.cuda
+def test_prefetched_batches_equal_the_host_batches(cuda_device):
+    """``data/prefetch.py``: pinned host memory, side-stream copies, the
+    consumer stream waiting on their event; every batch arrives whole and in
+    order, also while the consumer's stream is busy and buffers are freed."""
+    import numpy as np
+
+    from layout2img_tpu_torch.data.prefetch import device_prefetch
+
+    rng = np.random.default_rng(0)
+    host = [{"images": rng.standard_normal((8, 3, 128, 128), dtype=np.float32),
+             "labels": rng.integers(0, 184, (8, 8)).astype(np.int32),
+             "boxes": rng.random((8, 8, 4), dtype=np.float32)} for _ in range(12)]
+    busy = torch.randn(4096, 4096, device=cuda_device)
+    for i, batch in enumerate(device_prefetch(iter(host), cuda_device, size=2)):
+        busy = busy @ busy / 64.0  # keep the consumer's stream busy while copies land
+        for k, v in batch.items():
+            assert v.device.type == "cuda" and v.dtype == torch.from_numpy(host[i][k]).dtype
+            assert torch.equal(v.cpu(), torch.from_numpy(host[i][k])), (i, k)
+        del batch
+    assert i == len(host) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("async_save", [False, True])
+def test_checkpoint_round_trip_on_the_card_is_bit_exact(cuda_device, tmp_path, async_save):
+    """Two mixed-precision steps of a small generator and D on the card
+    (Adam moments, SN vectors, BN statistics, EMA), saved, restored into a
+    fresh state on the card: every tensor equal bit for bit. With
+    ``AsyncSaver`` the next step's in-place update starts at once, and the
+    checkpoint still holds the state of the ``save`` call."""
+    import numpy as np
+
+    from layout2img_tpu_torch.data.synthetic import synthetic_batch
+    from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.train.step import make_train_step
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
+
+    cfg = TrainConfig(use_vgg_loss=False, mixed_precision=True, ema_decay=0.9)
+
+    def fresh(seed):
+        return create_train_state(
+            init_generator(seed, 20, device=cuda_device, ch=16, num_mask_classes=20),
+            init_discriminator(seed + 1, 20, device=cuda_device, ch=16), cfg)
+
+    state = fresh(0)
+    step = make_train_step(state, cfg)
+    rng, g = np.random.default_rng(1), torch.Generator(device=cuda_device).manual_seed(2)
+    batches = []
+    for _ in range(3):
+        b = {k: torch.from_numpy(v).to(cuda_device)
+             for k, v in synthetic_batch(rng, 4, 128, 8, 20).items()}
+        b["labels"] = b["labels"].long()
+        batches.append(b)
+    for b in batches[:2]:
+        step(b, g)
+    mgr = CheckpointManager(str(tmp_path))
+    saver = AsyncSaver(mgr) if async_save else mgr
+    want = {k: v.detach().clone() for k, v in state.generator.state_dict().items()}
+    want_opt = {k: v["exp_avg_sq"].clone() for k, v in state.g_opt.state_dict()["state"].items()}
+    saver.save(state)
+    step(batches[2], g)  # updates the parameters in place while the save is in flight
+    saver.wait()
+    other = fresh(7)
+    mgr.restore(other)
+    assert other.step == 2
+    got = other.generator.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.items())
+    assert all(torch.equal(other.g_opt.state_dict()["state"][k]["exp_avg_sq"], v)
+               for k, v in want_opt.items())
+    assert all(p.dtype == torch.float32 and p.device.type == "cuda"
+               for p in other.generator.parameters())
+    if not async_save:  # the synchronous save: the whole state, both Adams and the EMA
+        ref = CheckpointManager(str(tmp_path / "again"))
+        ref.save(other)
+        a, b = ref.read(), mgr.read()
+        for part in ("generator", "discriminator", "ema"):
+            assert all(torch.equal(a[part][k], v) for k, v in b[part].items()), part

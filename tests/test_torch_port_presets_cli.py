@@ -47,9 +47,10 @@ CH, NC, B, O = 4, 10, 2, 8
 
 @pytest.mark.parametrize("model,size", [("lostgan", 128), ("ours_d_256", 256)])
 def test_train_then_sample_cli(tmp_path, model, size):
-    out = tmp_path / "run"
     train_cli.main(["--model", model, "--steps", "1", "--batch_size", "2", "--ch", "4",
-                    "--no_vgg", "--device", "cpu", "--out_path", str(out)])
+                    "--no_vgg", "--device", "cpu", "--out_path", str(tmp_path / "run"),
+                    "--log_every", "1"])
+    out = tmp_path / "run" / "synthetic" / str(size) / model
     line = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])
     assert line["step"] == 1 and np.isfinite(line["d_loss"]) and np.isfinite(line["g_loss"])
     exp = presets.EXPERIMENTS[model]

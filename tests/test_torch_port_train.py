@@ -472,9 +472,10 @@ def test_step_params_and_state_match_jax(step_pair, net):
 
 
 def test_train_cli_writes_weights_the_sampler_loads(tmp_path):
-    out = tmp_path / "run"
     train_cli.main(["--dataset", "synthetic", "--steps", "2", "--batch_size", "2", "--ch", "4",
-                    "--no_vgg", "--device", "cpu", "--out_path", str(out)])
+                    "--no_vgg", "--device", "cpu", "--out_path", str(tmp_path / "run"),
+                    "--log_every", "1"])
+    out = tmp_path / "run" / "synthetic" / "128" / "context_app_v2"
     lines = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
     assert [ln["step"] for ln in lines] == [1, 2]
     assert all(np.isfinite(ln["d_loss"]) and np.isfinite(ln["g_loss"]) for ln in lines)
