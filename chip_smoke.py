@@ -105,7 +105,23 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               traced loader-fed steps;
               then train and resume on a Visual Genome fixture (o=31, 179
               classes) when h5py is there.
-13. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+13. eval   -- the evaluation path at full width: InceptionV3 (4 images at
+              128 px, 2 at 64, 2 at 256) and LPIPS with the port's seeded
+              random weights on the card against the CPU at the CPU tests'
+              bars, and the pool3 variance; ``cli.train --eval_every 2
+              --eval_n 16`` (``context_app_v2``, ch=64, b=8, f32, VGG on, 4
+              steps): rel_fid at steps 2 and 4, 10 forward ISLA launches per
+              step, per image grid and per eval batch; one ``PeriodicEval``
+              call on a full-width train state, which equals itself bit for
+              bit before and after, timed as G sampling, Inception and the
+              host's Frechet distance; ``cli.sample`` (64 images, 40
+              launches) then ``cli.evaluate`` is, fid (``--ref_dir`` and
+              ``--save_stats`` then ``--ref_stats``: the same number, about
+              0), kid and lpips (0, a ragged tail) on that directory; the
+              eval bench (``bench_eval.py``: b=256, 128-px input) in f32 and
+              with TF32, its operation count and bound, and the profiler's
+              breakdown of one batch.
+14. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -135,7 +151,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets", "data")
+          "train_mixed", "presets", "data", "eval")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -1076,6 +1092,18 @@ def _profile_steps(step, batch, rng, n: int = 2):
     return sum(ms for _, ms, _ in rows), wall_ms, sum(k for _, _, k in rows), rows
 
 
+def by_kind(rows, dev_ms: float) -> str:
+    """Profiler rows of (name, device ms, launches) summed by the kinds of
+    ``PROFILE_GROUPS``, largest first."""
+    groups = {}
+    for key, ms, n in rows:
+        group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)), "other")
+        t_ms, t_n = groups.get(group, (0.0, 0))
+        groups[group] = (t_ms + ms, t_n + n)
+    return "; ".join(f"{g} {ms:.3f} ms ({100 * ms / dev_ms:.1f}%, x{n})"
+                     for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+
+
 def _one_step(paths: dict, dev, seed: int, inputs, config, remat_blocks: int = 0):
     """One step without dropout from the saved weights: the state, its
     metrics, the ISLA launches (forward, backward main, finishing) and G's
@@ -1339,14 +1367,7 @@ def train_mixed_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | Non
                   f"{dev_ms:.3f} ms of {wall_ms:.3f} ms traced per step ({100 * dev_ms / wall_ms:.1f}% "
                   f"busy), {kernels} kernels per step, ISLA kernels x{sum(n for _, _, n in isla)} "
                   f"{isla_ms:.4f} ms ({100 * isla_ms / dev_ms:.1f}%) on {card}")
-            groups = {}
-            for key, ms, n in rows:
-                group = next((g for g, marks in PROFILE_GROUPS if any(m in key for m in marks)), "other")
-                t_ms, t_n = groups.get(group, (0.0, 0))
-                groups[group] = (t_ms + ms, t_n + n)
-            phase("train_mixed", "profile by kind: " + "; ".join(
-                f"{g} {ms:.3f} ms ({100 * ms / dev_ms:.1f}%, x{n})"
-                for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])))
+            phase("train_mixed", "profile by kind: " + by_kind(rows, dev_ms))
             for key, ms, n in rows[:15]:
                 phase("train_mixed", f"  {ms:8.4f} ms  {100 * ms / dev_ms:5.1f}%  x{n:<4d} {key[:90]}")
         del built
@@ -1362,6 +1383,7 @@ def train_mixed_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | Non
     return out
 
 
+PRESET_TIMED_STEPS = 3  # timed steps per experiment and precision in the presets phase
 # the presets phase: (experiment, generator preset, D preset), the slice's
 # LostGAN experiments (cli/presets.py) and the 64px pair
 PRESET_RUNS = (("ours_d", "ours_d_base128", "d128_app"), ("context_app", "context128", "d128_app"),
@@ -1451,7 +1473,7 @@ def presets_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
                                                      "isla_norm_bwd_finish_kernel")]
         need(seen == [calls] * 3, f"{tag}: the profiler saw {seen} ISLA forward, backward and "
                                   f"finishing kernels in one f32 step, not {calls} each")
-        f32_ms = time_ms(lambda: step(batches[0], rng), 5)
+        f32_ms = time_ms(lambda: step(batches[0], rng), PRESET_TIMED_STEPS)
         built = SimpleNamespace(step=step, batch=batches[0], rng=rng)
         f32_sums = check_captured(f"{exp_name} f32 b={B}", capture_isla_calls(built), COCO_OBJ,
                                   reps, calls, torch.float32, "presets")
@@ -1461,7 +1483,7 @@ def presets_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
         built = SimpleNamespace(step=step, batch=batches[0], rng=rng)
         bf_sums = check_captured(f"{exp_name} mixed b={B}", capture_isla_calls(built), COCO_OBJ,
                                  reps, calls, torch.bfloat16, "presets")
-        mixed_ms = time_ms(lambda: step(batches[0], rng), 5)
+        mixed_ms = time_ms(lambda: step(batches[0], rng), PRESET_TIMED_STEPS)
         del state, step, built, batches
 
         # one f32 eval forward at b=2, card against CPU
@@ -1547,7 +1569,8 @@ def _logged(run: str) -> list[dict]:
         return [json.loads(ln) for ln in f]
 
 
-def _cli_train(tag: str, argv: list[str], expect_exit: int = 0) -> tuple[int, int, int]:
+def _cli_train(tag: str, argv: list[str], expect_exit: int = 0,
+               name: str = "data") -> tuple[int, int, int]:
     """One in-process ``cli.train.main`` call; returns the ISLA launches it
     made (counts set to 0 just before, read just after)."""
     from layout2img_tpu_torch.cli import train as train_cli
@@ -1562,7 +1585,7 @@ def _cli_train(tag: str, argv: list[str], expect_exit: int = 0) -> tuple[int, in
     sync_all()
     counts = _isla_counts()
     need(code == expect_exit, f"{tag}: cli.train exited {code}, expected {expect_exit}")
-    phase("data", f"{tag}: cli.train exit {code} in {time.perf_counter() - t0:.1f}s; ISLA forward "
+    phase(name, f"{tag}: cli.train exit {code} in {time.perf_counter() - t0:.1f}s; ISLA forward "
           f"x{counts[0]}, backward x{counts[1]}, finishing x{counts[2]}")
     return counts
 
@@ -1882,6 +1905,321 @@ def data_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
     return tuple(totals)
 
 
+# the eval phase: (images, side) of the Inception card-vs-CPU checks, the
+# periodic eval's pool, and the images cli.sample writes for cli.evaluate
+EVAL_INCEPTION_INPUTS = ((4, 128), (2, 64), (2, 256))
+EVAL_B, EVAL_N, EVAL_SAMPLES = 8, 16, 64
+
+
+def _eval_nets_card_vs_cpu(dev) -> None:
+    """InceptionV3 and LPIPS with the port's seed-0 random weights on the
+    card against the CPU, TF32 off, at the CPU tests' bars: Inception
+    features and logits 1e-5 of their largest magnitude, probabilities 1e-6
+    (``tests/test_torch_port_eval_inception.py``); LPIPS 1e-6
+    (``tests/test_torch_port_eval_lpips.py``), and d(a, a) = 0 within 1e-6."""
+    import torch
+
+    from layout2img_tpu_torch.eval.inception import load_inception, random_inception_state_dict
+    from layout2img_tpu_torch.eval.lpips import load_lpips, random_lpips_state_dict
+    from layout2img_tpu_torch.eval.metrics import tf32_off
+
+    sd = random_inception_state_dict(0)
+    nets = [load_inception(sd, d) for d in (dev, "cpu")]  # the card's, the CPU's
+    g = torch.Generator().manual_seed(7)
+    for n, side in EVAL_INCEPTION_INPUTS:
+        x = torch.rand(n, 3, side, side, generator=g) * 2 - 1
+        outs = []
+        with torch.inference_mode(), tf32_off():
+            for net in nets:
+                f, logits = net(x.to(next(net.parameters()).device))
+                outs.append((f.cpu(), logits.cpu(), torch.softmax(logits, -1).cpu()))
+        errs = []
+        for kind, got, want in zip(("features", "logits", "probabilities"), *outs):
+            err = (got - want).abs().max().item()
+            bar = 1e-6 if kind == "probabilities" else 1e-5 * want.abs().max().item()
+            need(err <= bar,
+                 f"Inception {kind} card vs CPU at b={n}, {side}px: {err:.3e} > {bar:.3e}")
+            errs.append(f"{kind} {err:.3e} (bar {bar:.3e})")
+        f = outs[0][0]
+        var, spread = f.var().item(), f.std(0).mean().item()
+        need(var > 1e-2 and spread > 1e-4, f"degenerate pool3 features: variance {var:.3e}, "
+             f"spread across images {spread:.3e}")
+        phase("eval", f"InceptionV3 card vs CPU, b={n} at {side}px: " + ", ".join(errs)
+              + f"; pool3 variance {var:.4f}, mean std across images {spread:.3e}")
+    del nets
+
+    sd = random_lpips_state_dict(0)
+    card_lp, cpu_lp = (load_lpips(sd, device=d) for d in (dev, "cpu"))
+    a, b = (torch.rand(4, 3, 128, 128, generator=g) * 2 - 1 for _ in range(2))
+    with torch.inference_mode(), tf32_off():
+        got = card_lp(a.to(dev), b.to(dev)).cpu()
+        want = cpu_lp(a, b)
+        same = card_lp(a.to(dev), a.to(dev)).abs().max().item()
+    err = (got - want).abs().max().item()
+    need(err <= 1e-6, f"LPIPS card vs CPU: {err:.3e} > 1e-6")
+    need(same <= 1e-6, f"LPIPS d(a, a) = {same:.3e} on the card, not 0 within 1e-6")
+    phase("eval", f"LPIPS card vs CPU, b=4 at 128px: distances {got.numpy().round(5).tolist()}, "
+          f"max error {err:.3e} (bar 1e-6); d(a, a) max {same:.3e} (bar 1e-6)")
+
+
+def _train_state_snapshot(state, z_rng) -> list:
+    """Copies of every G and D tensor (parameters and buffers), both
+    optimizers' state, the EMA, the latent generator's and the card's
+    default generator's state."""
+    import torch
+
+    tensors = [*state.generator.state_dict().values(), *state.discriminator.state_dict().values()]
+    for opt in (state.g_opt, state.d_opt):
+        for st in opt.state_dict()["state"].values():
+            tensors += [v for v in st.values() if torch.is_tensor(v)]
+    tensors += list((state.ema or {}).values())
+    return [t.detach().clone() for t in tensors] + [z_rng.get_state(), torch.cuda.get_rng_state()]
+
+
+def _hook_call(seed: int, dev, card: str) -> tuple[int, int, int]:
+    """One ``PeriodicEval`` call at the phase's pool size on a full-width
+    train state (one f32 step taken, VGG on): the state before and after it
+    equal bit for bit, the call's time split into G sampling, Inception and
+    the host's Frechet distance. Returns the ISLA launches of the call."""
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch.cli import train as train_cli
+    from layout2img_tpu_torch.cli.presets import experiment
+    from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.train import eval_hook
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.train.step import make_train_step
+    from layout2img_tpu_torch.utils.convert import init_vgg
+
+    args = train_cli.parse_args(["--seed", str(seed), "--batch_size", str(EVAL_B)])
+    exp = experiment(args.model)
+    train_cli.check_img_size(args, exp)
+    gen, disc = train_cli.build_networks(args, exp, dev)
+    cfg = TrainConfig(ema_decay=0.999)
+    state = create_train_state(gen, disc, cfg)
+    step = make_train_step(state, cfg, vgg_loss=VGGLoss(init_vgg(seed + 2, device=dev)))
+    loader = SyntheticLayoutDataset(EVAL_B, 128, 8, seed=seed, steps=EVAL_N // EVAL_B)
+    pool = list(loader)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pool[0].items()}
+    batch["labels"] = batch["labels"].long()
+    z_rng = torch.Generator(device=dev).manual_seed(seed)
+    step(batch, z_rng)
+
+    spent = {"sampling": 0.0, "fid": 0.0}
+    sample = eval_hook.make_train_sample_fn(gen)
+
+    def timed_sample(*a):
+        sync_all()
+        t0 = time.perf_counter()
+        out = sample(*a)
+        sync_all()
+        spent["sampling"] += time.perf_counter() - t0
+        return out
+
+    frechet = eval_hook.frechet_distance
+
+    def timed_frechet(*a):
+        t0 = time.perf_counter()
+        out = frechet(*a)
+        spent["fid"] += time.perf_counter() - t0
+        return out
+
+    hook = eval_hook.PeriodicEval(timed_sample, pool, device=dev, seed=seed)
+    spent["sampling"] = 0.0
+    before = _train_state_snapshot(state, z_rng)
+    eval_hook.frechet_distance = timed_frechet
+    _reset_isla_counts()
+    try:
+        sync_all()
+        t0 = time.perf_counter()
+        out = hook(state)
+        sync_all()
+        total = time.perf_counter() - t0
+    finally:
+        eval_hook.frechet_distance = frechet
+    counts = _isla_counts()
+    after = _train_state_snapshot(state, z_rng)
+    need(len(before) == len(after) and all(torch.equal(x, y) for x, y in zip(before, after)),
+         "the PeriodicEval call changed the training state")
+    need(state.generator.training, "the generator is not back in training mode after the eval")
+    need(np.isfinite(out["rel_fid"]) and out["rel_fid"] >= 0 and set(out) == {"rel_fid"},
+         f"the hook returned {out}")
+    need(counts == (10 * len(pool), 0, 0),
+         f"the hook call made ISLA launches {counts}, not {(10 * len(pool), 0, 0)}")
+    inception = total - spent["sampling"] - spent["fid"]
+    phase("eval", f"PeriodicEval call at the phase's pool ({hook.n_images} images, {len(pool)} "
+          f"batches of {EVAL_B}, EMA on): rel_fid {out['rel_fid']:.4f}; the {len(before)} tensors "
+          "and generator states of the train state equal before and after bit for bit; ISLA "
+          f"x{counts[0]}; {1e3 * total:.1f} ms = G sampling {1e3 * spent['sampling']:.1f} ms + "
+          f"Inception {1e3 * inception:.1f} ms + Frechet distance on the host "
+          f"{1e3 * spent['fid']:.1f} ms (host clock, synchronized; on {card})")
+    del state, step, gen, disc, hook
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _evaluate(argv: list[str]) -> str:
+    import contextlib
+    import io
+
+    from layout2img_tpu_torch.cli import evaluate as evaluate_cli
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        evaluate_cli.main(argv)
+    text = out.getvalue()
+    last = text.strip().splitlines()[-1]
+    phase("eval", f"cli.evaluate {' '.join(argv[:1])}: {last} ({time.perf_counter() - t0:.1f}s)")
+    return text
+
+
+def _number(text: str, mark: str) -> float:
+    line = [ln for ln in text.splitlines() if mark in ln][-1]
+    return float(line.split(mark, 1)[1].split()[0])
+
+
+def _bench_eval(dev, card: str) -> None:
+    """The eval bench at its defaults (b=256, 128-px input), f32 with TF32
+    off, then with TF32 for comparison; the work's bound from its counted
+    operations; a profile of one batch by kind."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from layout2img_tpu_torch import bench_eval
+
+    cfg = bench_eval.EvalBenchConfig()
+    net, images = bench_eval.build(cfg, dev)
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        net(images)
+    flops = counter.get_total_flops()
+    bound_ms = {k: 1e3 * flops / rate for k, rate in (("f32", 67e12), ("TF32", 495e12))}
+    rate = bench_eval.time_calls(net, images, cfg)
+    phase("eval", f"bench_eval b={cfg.batch} at {cfg.size}px, f32 TF32 off: "
+          f"{rate['img_s']:.1f} img/s, {rate['median_ms']:.3f} ms per batch median "
+          f"[{rate['p25_ms']:.3f}, {rate['p75_ms']:.3f}] over {len(rate['call_ms'])} calls, peak "
+          f"{rate['peak_gib']:.2f} GiB allocated; {flops / 1e9 / cfg.batch:.2f} GFLOP per image "
+          f"(convs and the fc, counted), bound {bound_ms['f32']:.3f} ms at 67 TFLOP/s "
+          f"({100 * bound_ms['f32'] / rate['median_ms']:.1f}% of the bound reached) on {card}; "
+          "bench line " + json.dumps(rate["line"]))
+    tf32 = bench_eval.time_calls(net, images, dataclasses.replace(cfg, scan=5, scans=4), tf32=True)
+    phase("eval", f"bench_eval with TF32 for comparison: {tf32['img_s']:.1f} img/s, "
+          f"{tf32['median_ms']:.3f} ms per batch median [{tf32['p25_ms']:.3f}, "
+          f"{tf32['p75_ms']:.3f}] over {len(tf32['call_ms'])} calls, "
+          f"peak {tf32['peak_gib']:.2f} GiB; "
+          f"bound {bound_ms['TF32']:.3f} ms at 495 TFLOP/s on {card}")
+
+    with torch.inference_mode():
+        net(images)
+        sync_all()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            f, logits = net(images)
+            torch.softmax(logits, -1)
+            sync_all()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and not getattr(e, "is_user_annotation", False)
+            and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(ms for _, ms, _ in rows)
+    if dev_ms <= 0:
+        phase("eval", "Inception profile: the profiler saw no device time; breakdown not measured")
+    else:
+        rows.sort(key=lambda r: -r[1])
+        phase("eval", f"profile of one Inception batch (b={cfg.batch}, f32): {dev_ms:.3f} ms of "
+              f"device time in {wall_ms:.3f} ms traced ({100 * dev_ms / wall_ms:.1f}% busy), "
+              f"{sum(n for _, _, n in rows)} kernels; by kind: {by_kind(rows, dev_ms)}")
+        for key, ms, n in rows[:8]:
+            phase("eval", f"  {ms:8.4f} ms  {100 * ms / dev_ms:5.1f}%  x{n:<4d} {key[:90]}")
+    del net, images
+    torch.cuda.empty_cache()
+
+
+def eval_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
+    """The evaluation path at full width; returns the ISLA launches of its
+    main path (``cli.train`` with the periodic eval, the hook call,
+    ``cli.sample``)."""
+    import shutil
+
+    from layout2img_tpu_torch.cli import sample as sample_cli
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp_dir, "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    _eval_nets_card_vs_cpu(dev)
+
+    # cli.train with --eval_every at full width
+    out = os.path.join(root, "out")
+    steps, every = 4, 2
+    counts = _cli_train("cli.train --eval_every", [
+        "--model", "context_app_v2", "--dataset", "synthetic", "--batch_size", str(EVAL_B),
+        "--steps", str(steps), "--eval_every", str(every), "--eval_n", str(EVAL_N),
+        "--log_every", str(every), "--seed", str(seed), "--out_path", out], name="eval")
+    run = os.path.join(out, "synthetic", "128", "context_app_v2")
+    lines = _logged(run)
+    evals = [ln for ln in lines if "rel_fid" in ln]
+    need([ln["step"] for ln in evals] == [2, 4],
+         f"rel_fid logged at {[ln['step'] for ln in evals]}")
+    need(all(math.isfinite(ln["rel_fid"]) and ln["rel_fid"] >= 0 and "is_mean" not in ln
+             for ln in evals), f"eval lines {evals}")
+    n_evals, pool_batches, grids = len(evals), EVAL_N // EVAL_B, steps // every
+    want = (10 * (steps + grids + n_evals * pool_batches), 10 * steps, 10 * steps)
+    need(counts == want, f"cli.train --eval_every made ISLA launches {counts}, not {want}: 10 per "
+         f"step, per image grid and per eval batch ({n_evals} evals of {pool_batches} batches)")
+    phase("eval", "cli.train --eval_every: rel_fid " + ", ".join(
+        f"{ln['rel_fid']:.4f} at step {ln['step']}" for ln in evals)
+          + f" (no is_mean: random filters); ISLA launches {counts} = 10 per step, per grid and "
+          f"per eval batch")
+    totals = list(counts)
+
+    counts = _hook_call(seed, dev, card)
+    totals[0] += counts[0]
+
+    # cli.sample from the run's G.pth, then cli.evaluate on the directory
+    samples = os.path.join(root, "samples")
+    _reset_isla_counts()
+    sample_cli.main(["--model", "context_app_v2", "--weights", os.path.join(run, "G.pth"),
+                     "--dataset", "synthetic", "--batch_size", str(EVAL_SAMPLES // 4),
+                     "--num_img", "1", "--sample_path", samples, "--seed", str(seed),
+                     "--device", "cuda"])
+    sync_all()
+    counts = _isla_counts()
+    written = os.listdir(samples)
+    need(len(written) == EVAL_SAMPLES and counts[0] == 40,
+         f"cli.sample wrote {len(written)} images with {counts[0]} ISLA launches, not "
+         f"{EVAL_SAMPLES} and 40")
+    totals[0] += counts[0]
+    phase("eval", f"cli.sample from G.pth: {len(written)} images, ISLA x{counts[0]}")
+
+    common = ["--dir", samples, "--batch_size", "32", "--device", "cuda"]
+    is_mean = _number(_evaluate(["is", *common]), "IS: ")
+    need(abs(is_mean - 1.0) < 0.01, f"IS {is_mean} with random filters, not about 1")
+    stats = os.path.join(root, "samples.npz")
+    fid_dir = _number(_evaluate(["fid", *common, "--ref_dir", samples, "--save_stats", stats]),
+                      "FID: ")
+    fid_stats = _number(_evaluate(["fid", *common, "--ref_stats", stats]), "FID: ")
+    need(abs(fid_dir) < 1e-3 and fid_stats == fid_dir,
+         f"FID of the samples against themselves: {fid_dir} by --ref_dir, {fid_stats} by "
+         "--ref_stats, not the same number about 0")
+    kid = _number(_evaluate(["kid", *common, "--ref_dir", samples, "--kid_subsets", "20"]),
+                  "KID: ")
+    need(abs(kid) < 50.0, f"KID of the samples against themselves {kid} (x10^-3), not about 0")
+    lp = _number(_evaluate(["lpips", "--dir", samples, "--ref_dir", samples, "--batch_size", "7",
+                            "--device", "cuda"]), "LPIPS: ")
+    need(lp == 0.0, f"LPIPS of the samples against themselves {lp}, not 0")
+
+    _bench_eval(dev, card)
+    shutil.rmtree(root, ignore_errors=True)
+    phase("eval", f"main path ran the ISLA forward kernel {totals[0]} times, the backward's main "
+          f"kernel {totals[1]} and its finishing kernel {totals[2]} times; "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(totals)
+
+
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
     """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
     import numpy as np
@@ -1985,6 +2323,11 @@ def main(argv=None) -> int:
         if "data" in phases:
             (fwd["launches_data"], bwd["launches_data"],
              fin["launches_data"]) = data_phase(args.seed, tmp_dir, dev, card)
+        if "eval" in phases:
+            counts = eval_phase(args.seed, tmp_dir, dev, card)
+            for row, n in zip((fwd, bwd, fin), counts):
+                row["launches_eval"] = n
+                row["launches"] = row.get("launches", 0) + n
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

@@ -33,6 +33,13 @@ the live generator's buffers). ``--steps N`` caps the steps this run takes
   point or before a save keep the last good checkpoint and exit 3;
   ``--fault_inject_nan_at N`` poisons the metrics read from step N on.
 - SIGTERM: the step in flight finishes, the state is saved, exit 0.
+- ``--eval_every N`` (``train/eval_hook.py``): every N steps, the
+  generator (its EMA when there is one) samples a frozen pool of the first
+  ``ceil(--eval_n / --batch_size)`` loader batches' layouts with frozen
+  latents, and ``rel_fid`` against the pool's real images (and, with
+  ``--inception_weights``, ``is_mean``/``is_std``) goes to
+  ``metrics.jsonl`` and ``log.txt``; without weights Inception has seeded
+  random filters and rel-FID is a relative trajectory only.
 - ``--torch_ckpt_g/--torch_ckpt_d`` fine-tune from reference ``.pth``
   files (the generator with ``legacy_attention``; their Adam moments
   restart), ``--vgg_weights`` loads torchvision VGG19 features (else seeded
@@ -42,8 +49,7 @@ the live generator's buffers). ``--steps N`` caps the steps this run takes
 Without ``--mixed_precision`` the step runs in f32 with TF32 off in cuDNN
 and matmul, as the JAX package's default ``TrainConfig`` does. The object
 budgets are checked against the dataset's valid-object counts. The flags of
-later slices raise ``NotImplementedError`` naming their ROADMAP item: eval
-(``--eval_every``, ``--eval_n``, ``--inception_weights``), the special
+later slices raise ``NotImplementedError`` naming their ROADMAP item: the special
 families (``--l2i_fusion``, ``--model ours_ed|layout2im``) and multi-GPU
 (``--model_parallel``, ``--mp_mode``, ``--preempt_sync_every``). Runs on the
 GPU; ``--device cpu`` asks for the CPU.
@@ -52,6 +58,7 @@ GPU; ``--device cpu`` asks for the CPU.
 from __future__ import annotations
 
 import argparse
+import itertools
 import logging
 import math
 import os
@@ -130,10 +137,15 @@ def parse_args(argv=None):
     p.add_argument("--vg_vocab", default="datasets/vg/vocab.json")
     p.add_argument("--vg_h5", default="datasets/vg/train.h5")
     p.add_argument("--vg_image_dir", default="datasets/vg/images")
+    p.add_argument("--eval_every", type=int, default=0,
+                   help="every N steps, sample a frozen real-layout pool and log rel-FID (+ IS "
+                        "with --inception_weights) to the metric stream (0 = off)")
+    p.add_argument("--eval_n", type=int, default=64,
+                   help="images in the frozen eval pool (rounded up to whole batches)")
+    p.add_argument("--inception_weights", default="",
+                   help="torchvision inception_v3 .pth for --eval_every (none = fixed-seed random "
+                        "filters; rel-FID is then a relative trajectory, IS is skipped)")
     # later slices: set, they raise
-    p.add_argument("--eval_every", type=int, default=0, help="not ported (ROADMAP §1 item 4)")
-    p.add_argument("--eval_n", type=int, default=None, help="not ported (ROADMAP §1 item 4)")
-    p.add_argument("--inception_weights", default="", help="not ported (ROADMAP §1 item 4)")
     p.add_argument("--l2i_fusion", default=None, help="not ported (ROADMAP §1 item 5)")
     p.add_argument("--model_parallel", type=int, default=1, help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--mp_mode", default=None, help="not ported (ROADMAP §1 item 6)")
@@ -146,9 +158,7 @@ def parse_args(argv=None):
 def refuse_later_slices(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of a set flag that a
     later slice ports."""
-    later = ((4, "--eval_every", args.eval_every > 0), (4, "--eval_n", args.eval_n is not None),
-             (4, "--inception_weights", bool(args.inception_weights)),
-             (5, "--l2i_fusion", args.l2i_fusion is not None),
+    later = ((5, "--l2i_fusion", args.l2i_fusion is not None),
              (6, "--model_parallel", args.model_parallel != 1),
              (6, "--mp_mode", args.mp_mode is not None),
              (6, "--preempt_sync_every", args.preempt_sync_every is not None))
@@ -234,27 +244,6 @@ def ema_state_dict(gen: torch.nn.Module, ema: dict[str, torch.Tensor]) -> dict[s
     return {k: ema.get(k, v) for k, v in gen.state_dict().items()}
 
 
-@torch.no_grad()
-def sample_grid(gen: torch.nn.Module, ema: dict | None, batch: dict, step: int) -> torch.Tensor:
-    """The generator (its EMA when there is one) in eval mode on the batch's
-    layouts, truncated latents seeded with ``step``."""
-    from layout2img_tpu_torch.sample import truncated_normal
-
-    labels, boxes = batch["labels"][:16], batch["boxes"][:16]
-    b, o = labels.shape
-    dev = labels.device
-    rng = torch.Generator(device=dev).manual_seed(step)
-    z = truncated_normal((b, o, gen.z_dim), 2.0, rng, dev, torch.float32)
-    z_im = truncated_normal((b, gen.z_dim), 2.0, rng, dev, torch.float32)
-    gen.eval()
-    try:
-        if ema is None:
-            return gen(z, boxes, labels, z_im)
-        return torch.func.functional_call(gen, ema, (z, boxes, labels, z_im))
-    finally:
-        gen.train()
-
-
 def build_networks(args, exp, device: torch.device):
     """The experiment's generator and discriminator with seeded random
     weights (seeds ``--seed`` and ``--seed + 1``); the generator runs the
@@ -302,6 +291,7 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
     from layout2img_tpu_torch.data.prefetch import device_prefetch
     from layout2img_tpu_torch.losses.perceptual import VGGLoss
     from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
+    from layout2img_tpu_torch.train.eval_hook import make_train_sample_fn
     from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
     from layout2img_tpu_torch.train.step import make_train_step
     from layout2img_tpu_torch.utils.convert import init_vgg
@@ -338,6 +328,8 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
     if args.async_ckpt:
         ckpt = AsyncSaver(ckpt)
     step_fn = make_train_step(state, cfg, vgg_loss=vgg)
+    sample_fn = make_train_sample_fn(gen)
+    evaluator = build_evaluator(args, sample_fn, loader, device, log) if args.eval_every > 0 else None
     log.info("training %s on %s (%s): batch %d, %s, from step %d", args.model, args.dataset,
              device, args.batch_size, "mixed precision" if cfg.mixed_precision else "f32",
              state.step)
@@ -391,9 +383,14 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
                     log.info("epoch %d step %d: %s", epoch + 1, state.step,
                              {k: round(v, 4) for k, v in m.items()})
                     writer.write(state.step, m)
-                    writer.write_images(state.step, "fake",
-                                        sample_grid(gen, state.ema, batch, state.step))
+                    grid_rng = torch.Generator(device=device).manual_seed(state.step)
+                    writer.write_images(state.step, "fake", sample_fn(
+                        state.ema, batch["boxes"][:16], batch["labels"][:16], grid_rng))
                     writer.write_images(state.step, "real", batch["images"][:16])
+                if evaluator is not None and state.step % args.eval_every == 0:
+                    em = evaluator(state)
+                    writer.write(state.step, em)
+                    log.info("eval step %d: %s", state.step, {k: round(v, 4) for k, v in em.items()})
                 if preempted["flag"]:
                     stop = True
                     break
@@ -431,6 +428,24 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
     for name, sd in written.items():
         torch.save(sd, os.path.join(out_dir, name))
     log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
+
+
+def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.Logger):
+    """The ``--eval_every`` hook on a frozen pool of the loader's first
+    ``ceil(eval_n / batch_size)`` batches (a loader's pass counts as an
+    epoch, as in the JAX CLI)."""
+    from layout2img_tpu_torch.train.eval_hook import PeriodicEval
+
+    batches = iter(loader)
+    pool = list(itertools.islice(batches, max(1, -(-args.eval_n // args.batch_size))))
+    batches.close()
+    evaluator = PeriodicEval(sample_fn, pool, inception_weights=args.inception_weights,
+                             device=device, seed=args.seed)
+    if not evaluator.real_weights:
+        log.warning("--eval_every without --inception_weights: rel_fid uses fixed-seed random "
+                    "filters (relative trajectory only)")
+    log.info("periodic eval: %d real images every %d steps", evaluator.n_images, args.eval_every)
+    return evaluator
 
 
 def _start_profiler(device: torch.device):

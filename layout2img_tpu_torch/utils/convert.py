@@ -18,6 +18,12 @@ exporters (every LostGAN preset and D):
 ``losses/perceptual.py::load_torch_vgg19_features``: flax ``conv{i}`` params
 -> torchvision ``features.{j}`` names.
 
+``inception_state_dict_from_jax`` and ``lpips_state_dict_from_jax`` are the
+inverses of the JAX package's ``eval/inception.py::load_torch_inception_v3``
+and ``eval/lpips.py::load_torch_lpips``: the eval nets' flax variables ->
+torchvision-named state dicts of ``eval.inception.InceptionV3`` and
+``eval.lpips.LPIPS``.
+
 ``init_generator``, ``init_discriminator`` and ``init_vgg`` give seeded random
 weights where no JAX checkpoint is at hand (the GPU machine has no JAX).
 """
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.device import resolve_device
+from layout2img_tpu_torch.eval.lpips import ALEX_CONV_INDEX
 from layout2img_tpu_torch.losses.perceptual import VGG19_CFG, VGG19Features
 from layout2img_tpu_torch.models.discriminators import LayoutDiscriminator, make_discriminator
 from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
@@ -207,6 +214,51 @@ def vgg19_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         out[f"features.{j}.weight"] = torch.from_numpy(_np(node["kernel"]).transpose(3, 2, 0, 1).copy())
         out[f"features.{j}.bias"] = torch.from_numpy(_np(node["bias"]).copy())
         conv, j = conv + 1, j + 2
+    return out
+
+
+def inception_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``InceptionV3`` variables (``params``, ``batch_stats``) ->
+    ``InceptionV3`` state dict: conv ``kernel`` (h, w, in, out) ->
+    ``conv.weight`` (out, in, h, w); BN ``scale``/``bias``/``mean``/``var`` ->
+    ``bn.weight``/``bias``/``running_mean``/``running_var`` (and
+    ``num_batches_tracked`` 0); ``fc.kernel`` (in, out) -> ``fc.weight`` (out, in)."""
+    out: dict[str, np.ndarray] = {}
+    leaf = {("conv", "kernel"): "conv.weight", ("bn", "scale"): "bn.weight",
+            ("bn", "bias"): "bn.bias", ("bn", "mean"): "bn.running_mean",
+            ("bn", "var"): "bn.running_var", ("fc", "kernel"): "fc.weight",
+            ("fc", "bias"): "fc.bias"}
+
+    def walk(tree: dict, path: tuple[str, ...]) -> None:
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            name = ".".join(path[:-1] + (leaf[path[-1:] + (k,)],))
+            arr = _np(v)
+            if k == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            out[name] = arr
+            if name.endswith("bn.running_mean"):
+                out[name.removesuffix("running_mean") + "num_batches_tracked"] = np.int64(0)
+
+    walk(variables["params"], ())
+    walk(variables["batch_stats"], ())
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def lpips_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` variables (``params`` ``conv0..conv4``, ``lins``) ->
+    ``LPIPS`` state dict (``net.features.{0,3,6,8,10}.weight``/``bias``,
+    ``lin0..lin4``)."""
+    out: dict[str, torch.Tensor] = {}
+    for n, idx in enumerate(ALEX_CONV_INDEX):
+        node = variables["params"][f"conv{n}"]
+        out[f"net.features.{idx}.weight"] = torch.from_numpy(
+            _np(node["kernel"]).transpose(3, 2, 0, 1).copy())
+        out[f"net.features.{idx}.bias"] = torch.from_numpy(_np(node["bias"]).copy())
+    for i, lin in enumerate(variables["lins"]):
+        out[f"lin{i}"] = torch.from_numpy(_np(lin).astype(np.float32))
     return out
 
 

@@ -289,9 +289,7 @@ def test_nan_guard_keeps_the_last_good_checkpoint(tmp_path, caplog, case):
     assert not os.path.exists(os.path.join(_run_dir(out), "G.pth")) or case == "final_save"
 
 
-@pytest.mark.parametrize("flag,item", [(["--eval_every", "5"], 4), (["--eval_n", "8"], 4),
-                                       (["--inception_weights", "i.pth"], 4),
-                                       (["--l2i_fusion", "convlstm"], 5),
+@pytest.mark.parametrize("flag,item", [(["--l2i_fusion", "convlstm"], 5),
                                        (["--model_parallel", "2"], 6), (["--mp_mode", "spatial"], 6),
                                        (["--preempt_sync_every", "5"], 6)])
 def test_later_slice_flags_name_the_roadmap(tmp_path, flag, item):

@@ -27,10 +27,12 @@ print(json.dumps({"names": names, "bad": bad, "lazy": lazy}))
 """
 # modules the walk must reach: the train step's knobs, the bench, the data
 # plane, checkpoints, logging, reference weights and every CLI among them
-_MODULES = ("bench", "cli.export_torch", "cli.preprocess_vg", "cli.presets", "cli.sample",
-            "cli.train", "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg",
-            "nn.gcn", "nn.mask_regress", "nn.remat", "train.checkpoint", "train.ema",
-            "train.step", "utils.casting", "utils.logging", "utils.reference")
+_MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export_torch", "cli.prepare_eval_images",
+            "cli.preprocess_vg", "cli.presets", "cli.sample", "cli.train", "cli.visualize",
+            "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg", "eval",
+            "eval.inception", "eval.lpips", "eval.metrics", "nn.gcn", "nn.mask_regress",
+            "nn.remat", "train.checkpoint", "train.ema", "train.eval_hook", "train.step",
+            "utils.casting", "utils.logging", "utils.reference")
 
 
 @pytest.fixture(scope="module")
@@ -65,10 +67,12 @@ def _no_cuda(monkeypatch):
 @pytest.mark.parametrize("entry", ["make_generator", "init_generator", "resolve_device", "cli",
                                    "make_discriminator", "init_discriminator", "init_vgg",
                                    "train_cli", "train_cli_knobs", "bench", "sample_cli_ckpt",
-                                   "train_cli_coco"])
+                                   "train_cli_coco", "train_cli_eval", "evaluate_cli",
+                                   "bench_eval"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
-    from layout2img_tpu_torch import bench
+    from layout2img_tpu_torch import bench, bench_eval
+    from layout2img_tpu_torch.cli import evaluate as evaluate_cli
     from layout2img_tpu_torch.cli import sample as sample_cli
     from layout2img_tpu_torch.cli import train as train_cli
     from layout2img_tpu_torch.device import resolve_device
@@ -95,6 +99,12 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
                                                     "--sample_path", str(tmp_path / "out")]),
         "train_cli_coco": lambda: train_cli.main(["--dataset", "coco", "--ch", "4",
                                                   "--out_path", str(tmp_path / "out")]),
+        "train_cli_eval": lambda: train_cli.main([
+            "--steps", "1", "--batch_size", "2", "--ch", "4", "--eval_every", "1", "--eval_n",
+            "2", "--out_path", str(tmp_path / "out")]),
+        "evaluate_cli": lambda: evaluate_cli.main(["fid", "--dir", str(tmp_path / "missing"),
+                                                   "--save_stats", str(tmp_path / "out")]),
+        "bench_eval": lambda: bench_eval.main([]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
