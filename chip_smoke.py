@@ -121,7 +121,25 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               eval bench (``bench_eval.py``: b=256, 128-px input) in f32 and
               with TF32, its operation count and bound, and the profiler's
               breakdown of one batch.
-14. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+14. special -- the special families at full width. Ours-ED (``BgFgGenerator``,
+              ch=64, 184 classes split 91/93, o=8, with d64 and the VGG loss):
+              G and D seeded, saved and reloaded strictly; 3 f32 b=8 steps
+              (finite losses; parameters, BN statistics and SN vectors
+              moved; 16 launches of each ISLA kernel per step by the counts
+              and the profiler); the 16 ISLA calls of one step against the
+              plain versions, timed; one f32 eval forward at b=2 against the
+              CPU at 2e-3; step ms, img/s and a traced step's breakdown at
+              b=8 and b=16. layout2im
+              (conv_dim 64, D ch=64, b=8) in each of its four fusions: 2 f32
+              steps (finite, moved) and one deterministic training-mode G
+              forward at b=2 against the CPU at 2e-3; the step ms and a
+              traced step at b=16 for ``transformer``. Then the CLIs on a 16-JPEG COCO fixture:
+              ``cli.train --model ours_ed`` 2 epochs and ``--resume`` one
+              with ``--eval_every`` (16 launches per step and per eval
+              batch), ``cli.train --model layout2im``, ``cli.sample
+              --ckpt_dir`` for both, ``cli.evaluate is`` on the Ours-ED
+              samples, ``cli.export_torch --model ours_ed`` (loads strictly).
+15. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -151,7 +169,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets", "data", "eval")
+          "train_mixed", "presets", "data", "eval", "special")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -2220,6 +2238,294 @@ def eval_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
     return tuple(totals)
 
 
+# the special phase: the Ours-ED and layout2im families at full width
+SPECIAL_FUSIONS = ("transformer", "convlstm", "transformer_decoder", "transformer_noctx")
+SPECIAL_IMAGES, SPECIAL_B = 16, 8  # the phase's COCO fixture: 16 JPEGs, 4 steps of 8 an epoch
+
+
+def _special_batches(seed: int, b: int, n: int, dev) -> list:
+    """``n`` COCO-shaped 64px batches (o=8, 3-8 objects) with the Ours-ED
+    streams, on the card."""
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch.data.coco import split_fg_bg_batch
+    from layout2img_tpu_torch.data.synthetic import synthetic_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        batch = split_fg_bg_batch(synthetic_batch(rng, b, 64, COCO_OBJ, COCO_CLASSES))
+        batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
+        for k in ("labels", "labels_fg", "labels_bg"):
+            batch[k] = batch[k].long()
+        out.append(batch)
+    return out
+
+
+def _special_profile(tag: str, step, batch, rng, card: str) -> None:
+    """One traced step of a special family: device time against the traced
+    wall time, kernels, time by kind and the heaviest kernels."""
+    dev_ms, wall_ms, kernels, rows = _profile_steps(step, batch, rng)
+    phase("special", f"{tag} profile: {dev_ms:.3f} ms device time of {wall_ms:.3f} ms traced "
+          f"({100 * dev_ms / wall_ms:.1f}% busy), {kernels} kernels per step on {card}; by kind: "
+          + by_kind(rows, dev_ms))
+    for key, ms, n in rows[:6]:
+        phase("special", f"  {ms:8.4f} ms  {100 * ms / dev_ms:5.1f}%  x{n:<4d} {key[:90]}")
+
+
+def _ours_ed_steps(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
+    """Ours-ED at full width (ch=64, 184 classes split 91/93, o=8, VGG on):
+    G and D seeded, saved and reloaded strictly; 3 f32 b=8 steps through
+    ``make_bgfg_train_step`` (finite losses, parameters, BN statistics and
+    SN vectors moved, 16 launches of each ISLA kernel per step by the counts
+    and by the profiler); the 16 ISLA calls of one step against the plain
+    versions, timed; one f32 eval forward at b=2, card against CPU at 2e-3;
+    step ms and img/s at b=8 and b=16."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.models.generators import BgFgGenerator
+    from layout2img_tpu_torch.train.state import TrainConfig
+    from layout2img_tpu_torch.train.step_bgfg import create_bgfg_state, make_bgfg_train_step
+    from layout2img_tpu_torch.utils.convert import (init_bgfg_generator, init_discriminator,
+                                                    init_vgg)
+
+    t0 = time.perf_counter()
+    g_path, d_path = (os.path.join(tmp_dir, f"special_{n}.pth") for n in ("G", "D"))
+    torch.save(init_bgfg_generator(seed, 91, COCO_CLASSES - 91, device="cpu", ch=CH).state_dict(),
+               g_path)
+    torch.save(init_discriminator(seed + 1, COCO_CLASSES, preset="d64", device="cpu",
+                                  ch=CH).state_dict(), d_path)
+
+    def load_g(device):
+        gen = BgFgGenerator(91, COCO_CLASSES - 91, ch=CH).to(device)
+        gen.load_state_dict(torch.load(g_path, map_location="cpu", weights_only=True), strict=True)
+        return gen
+
+    disc = init_discriminator(seed + 5, COCO_CLASSES, preset="d64", device=dev, ch=CH)
+    disc.load_state_dict(torch.load(d_path, map_location="cpu", weights_only=True), strict=True)
+    gen = load_g(dev)
+    cfg = TrainConfig()
+    state = create_bgfg_state(gen, disc, cfg)
+    step = make_bgfg_train_step(state, cfg, vgg_loss=VGGLoss(init_vgg(seed + 2, device=dev)))
+    calls = gen.isla_calls
+    need(calls == 16, f"BgFgGenerator makes {calls} ISLA calls per forward, not 16")
+    phase("special", f"ours_ed (BgFgGenerator 91 + 93 classes + d64, ch={CH}, 64px): "
+          f"{sum(p.numel() for p in gen.parameters())} + {sum(p.numel() for p in disc.parameters())}"
+          f" parameters, seeded, saved and reloaded strict; {calls} ISLA calls per forward")
+    batches = _special_batches(seed + 11, SPECIAL_B, 3, dev)
+    live = [int((batches[0][k] != 0).sum(dim=1).max()) for k in ("labels_fg", "labels_bg")]
+    phase("special", f"ours_ed streams: at most {live[0]} fg and {live[1]} bg live objects of "
+          f"{COCO_OBJ} slots per layout")
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    launches = drive_steps("special", "ours_ed f32", state, step, batches, rng, dev,
+                           per_step=calls)
+    names = device_kernels([lambda: step(batches[0], rng)])
+    seen = [sum(k in n for n in names) for k in ("isla_norm_kernel", "isla_norm_bwd_kernel",
+                                                 "isla_norm_bwd_finish_kernel")]
+    need(seen == [calls] * 3, f"ours_ed: the profiler saw {seen} ISLA forward, backward and "
+                              f"finishing kernels in one f32 step, not {calls} each")
+    phase("special", f"ours_ed: the profiler saw {seen} ISLA forward, backward and finishing "
+          "kernels in one f32 step")
+    sums = check_captured(f"ours_ed f32 b={SPECIAL_B}", capture_isla_calls(SimpleNamespace(
+        step=step, batch=batches[0], rng=rng)), COCO_OBJ, reps, calls, torch.float32, "special")
+    rates = {}
+    for b in (SPECIAL_B, 16):
+        batch = batches[0] if b == SPECIAL_B else _special_batches(seed + 12, b, 1, dev)[0]
+        ms = time_ms(lambda: step(batch, rng), 5)
+        rates[b] = ms
+        phase("special", f"ours_ed f32 step b={b}: {ms[0]:.3f} ms [{ms[1]:.3f}, {ms[2]:.3f}], "
+              f"{b / ms[0] * 1e3:.1f} img/s on {card}")
+        _special_profile(f"ours_ed f32 b={b}", step, batch, rng, card)
+    del state, step, gen, disc
+    torch.cuda.empty_cache()
+
+    # one f32 eval forward at b=2, card against CPU
+    layout = {k: v[:2].cpu() for k, v in batches[0].items()}
+    g_cpu = torch.Generator().manual_seed(seed + 13)
+    z = [torch.randn(2, COCO_OBJ, 128, generator=g_cpu) for _ in range(2)]
+    z_im = [torch.randn(2, 128, generator=g_cpu) for _ in range(2)]
+    args = (z[0], layout["boxes_fg"], layout["labels_fg"], z[1], layout["boxes_bg"],
+            layout["labels_bg"], z_im[0], z_im[1])
+    with torch.inference_mode():
+        want = load_g("cpu").eval()(*args)
+        got = load_g(dev).eval()(*(t.to(dev) for t in args)).cpu()
+    diff = (got - want).abs().max().item()
+    need(got.shape == (2, 3, 64, 64) and torch.isfinite(got).all().item() and diff <= 2e-3,
+         f"ours_ed: card vs CPU f32 eval forward differ by {diff} > 2e-3")
+    phase("special", f"ours_ed: f32 b=2 eval forward card vs CPU max_abs_diff={diff:.3e} (bar "
+          f"2e-3); {time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "sums": sums, "ms_b8": rates[SPECIAL_B][0], "ms_b16": rates[16][0]}
+
+
+def _layout2im_steps(seed: int, dev, card: str) -> dict:
+    """Each fusion of layout2im at full width (conv_dim 64, 184 classes, o=8,
+    b=8): 2 f32 steps (finite losses; parameters, BN statistics and SN
+    vectors moved; no ISLA launch); one deterministic training-mode G
+    forward at b=2, card against CPU at 2e-3; the step ms at b=16 for
+    ``transformer``."""
+    import torch
+
+    from layout2img_tpu_torch.ops.bbox import bbox_mask
+    from layout2img_tpu_torch.train.step_layout2im import (Layout2ImConfig,
+                                                           create_layout2im_state,
+                                                           make_layout2im_train_step)
+    from layout2img_tpu_torch.utils.convert import (init_layout2im_discriminators,
+                                                    init_layout2im_generator)
+
+    out = {}
+    cfg = Layout2ImConfig()
+    for fusion in SPECIAL_FUSIONS:
+        t0 = time.perf_counter()
+        gen = init_layout2im_generator(seed, COCO_CLASSES, fusion=fusion, device=dev)
+        d_img, d_obj = init_layout2im_discriminators(seed + 1, COCO_CLASSES, conv_dim=CH,
+                                                     device=dev)
+        state = create_layout2im_state(gen, d_img, d_obj, cfg)
+        step = make_layout2im_train_step(state, cfg)
+        phase("special", f"layout2im {fusion} (conv_dim 64, D ch={CH}): "
+              f"{sum(p.numel() for p in gen.parameters())} + "
+              f"{sum(p.numel() for p in state.discriminator.parameters())} parameters, seeded")
+        batches = _special_batches(seed + 21, SPECIAL_B, 2, dev)
+        rng = torch.Generator(device=dev).manual_seed(seed)
+        drive_steps("special", f"layout2im {fusion} f32", state, step, batches, rng, dev,
+                    per_step=0)
+        sd = {k: v.detach().cpu().clone() for k, v in gen.state_dict().items()}
+        b = {k: v[:2] for k, v in batches[0].items()}
+        g_cpu = torch.Generator().manual_seed(seed + 22)
+        noise = [torch.randn(2, COCO_OBJ, cfg.z_dim, generator=g_cpu) for _ in range(3)]
+        results = []
+        for device in ("cpu", dev):
+            net = init_layout2im_generator(seed, COCO_CLASSES, fusion=fusion, device=device)
+            net.load_state_dict(sd, strict=True)
+            bd = {k: v.to(device) for k, v in b.items()}
+            with torch.no_grad():
+                res = net.train()(bd["images"], bd["labels"], bd["boxes"],
+                                  bbox_mask(bd["boxes"], 64, 64), *(t.to(device) for t in noise),
+                                  deterministic=True)
+            results.append({k: res[k].cpu() for k in ("img_rec", "img_rand", "mu", "z_rand_rec")})
+        diff = max((results[1][k] - results[0][k]).abs().max().item() for k in results[0])
+        need(all(torch.isfinite(v).all().item() for v in results[1].values()) and diff <= 2e-3,
+             f"layout2im {fusion}: card vs CPU training-mode forward differ by {diff} > 2e-3")
+        ms = None
+        if fusion == "transformer":
+            big = _special_batches(seed + 23, 16, 1, dev)[0]
+            ms = time_ms(lambda: step(big, rng), 5)
+            _special_profile("layout2im transformer f32 b=16", step, big, rng, card)
+        phase("special", f"layout2im {fusion}: b=2 deterministic training-mode G forward card vs "
+              f"CPU max_abs_diff={diff:.3e} (bar 2e-3)"
+              + (f"; f32 step b=16: {ms[0]:.3f} ms [{ms[1]:.3f}, {ms[2]:.3f}], "
+                 f"{16 / ms[0] * 1e3:.1f} img/s on {card}" if ms else "")
+              + f"; {time.perf_counter() - t0:.1f}s")
+        out[fusion] = {"diff": diff, "ms_b16": ms[0] if ms else None}
+        del state, step, gen, d_img, d_obj
+        torch.cuda.empty_cache()
+    return out
+
+
+def _special_clis(seed: int, root: str, dev) -> tuple[int, int, int]:
+    """The CLIs on a COCO fixture at full width: ``cli.train --model
+    ours_ed`` 2 epochs, then ``--resume`` an epoch with ``--eval_every``;
+    ``cli.train --model layout2im`` 2 steps; ``cli.sample --ckpt_dir`` for
+    both; ``cli.evaluate is`` on the Ours-ED samples; ``cli.export_torch
+    --model ours_ed``. Returns the ISLA launches of the Ours-ED runs and
+    sampling."""
+    import torch
+
+    from layout2img_tpu_torch.cli import export_torch
+    from layout2img_tpu_torch.cli import sample as sample_cli
+    from layout2img_tpu_torch.data.synthetic import write_synthetic_coco, write_synthetic_stuff
+    from layout2img_tpu_torch.models.generators import BgFgGenerator
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+
+    fixture = os.path.join(root, "coco")
+    _, inst = write_synthetic_coco(fixture, SPECIAL_IMAGES, width=160, height=120, seed=seed)
+    stuff = write_synthetic_stuff(fixture, inst, seed=seed + 1)
+    data = ["--dataset", "coco", "--coco_image_dir", fixture, "--coco_instances", inst,
+            "--coco_stuff", stuff, "--batch_size", str(SPECIAL_B), "--seed", str(seed)]
+    out = os.path.join(root, "out")
+    common = [*data, "--save_every_epochs", "1", "--log_every", "2", "--out_path", out]
+    counts = _cli_train("cli.train --model ours_ed", ["--model", "ours_ed", *common,
+                                                      "--total_epoch", "2"], name="special")
+    run = os.path.join(out, "coco", "64", "ours_ed")
+    ckpt = os.path.join(run, "ckpt")
+    steps = CheckpointManager(ckpt).all_steps()
+    per_epoch = steps[0]
+    need(len(steps) == 2 and steps[1] == 2 * per_epoch and counts == (16 * steps[1],) * 3,
+         f"cli.train ours_ed: checkpoints {steps}, ISLA launches {counts}: not 16 of each per step")
+    more = _cli_train("cli.train --model ours_ed --resume --eval_every", [
+        "--model", "ours_ed", *common, "--total_epoch", "1", "--resume", "--eval_every",
+        str(per_epoch), "--eval_n", str(SPECIAL_B)], name="special")
+    steps = CheckpointManager(ckpt).all_steps()
+    lines = _logged(run)
+    evals = [ln for ln in lines if "rel_fid" in ln]
+    need(steps[-1] == 3 * per_epoch and [ln["step"] for ln in evals] == [3 * per_epoch]
+         and all(math.isfinite(v) for ln in lines for v in ln.values()),
+         f"resumed ours_ed: checkpoints {steps}, eval lines {evals}")
+    need(more == (16 * per_epoch + 16, 16 * per_epoch, 16 * per_epoch),
+         f"resumed ours_ed: ISLA launches {more}, not 16 per step and per eval batch")
+    phase("special", f"cli.train ours_ed: steps 1..{2 * per_epoch}, resumed {2 * per_epoch + 1}.."
+          f"{3 * per_epoch}, rel_fid {evals[0]['rel_fid']:.4f} at step {3 * per_epoch}; launches "
+          f"{counts} + {more} = 16 per step and per eval batch; no .pth: "
+          f"{not any(n.endswith('.pth') for n in os.listdir(run))}")
+    totals = [a + b for a, b in zip(counts, more)]
+
+    _cli_train("cli.train --model layout2im", ["--model", "layout2im", *common, "--steps", "2",
+                                               "--total_epoch", "1"], name="special")
+    l2i_ckpt = os.path.join(out, "coco", "64", "layout2im", "ckpt")
+    need(CheckpointManager(l2i_ckpt).all_steps() == [2], "cli.train layout2im: no checkpoint 2")
+
+    samples = {}
+    for model, ck in (("ours_ed", ckpt), ("layout2im", l2i_ckpt)):
+        path = os.path.join(root, f"samples_{model}")
+        _reset_isla_counts()
+        sample_cli.main(["--model", model, "--ckpt_dir", ck, *data, "--num_img", "1",
+                         "--sample_path", path, "--device", "cuda"])
+        sync_all()
+        got = _isla_counts()
+        n = len(os.listdir(path))
+        want = 16 * -(-n // SPECIAL_B) if model == "ours_ed" else 0
+        need(n > 0 and got[0] == want, f"cli.sample {model}: {n} images, {got[0]} ISLA "
+                                       f"launches, not {want}")
+        totals[0] += got[0]
+        samples[model] = path
+        phase("special", f"cli.sample --model {model} --ckpt_dir: {n} images, ISLA x{got[0]}")
+    is_mean = _number(_evaluate(["is", "--dir", samples["ours_ed"], "--batch_size", "16",
+                                 "--device", "cuda"]), "IS: ")
+    need(abs(is_mean - 1.0) < 0.01, f"IS of the ours_ed samples {is_mean} with random filters, "
+                                    "not about 1")
+    g_path = os.path.join(root, "G_ours_ed.pth")
+    export_torch.main(["--model", "ours_ed", "--ckpt_dir", ckpt, "--out_g", g_path])
+    BgFgGenerator(91, COCO_CLASSES - 91, ch=CH).load_state_dict(
+        torch.load(g_path, weights_only=True), strict=True)
+    phase("special", f"cli.evaluate is on the ours_ed samples: {is_mean:.4f}; cli.export_torch "
+          "--model ours_ed: G loads strictly into BgFgGenerator")
+    return tuple(totals)
+
+
+def special_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
+    """The special families at full width, then through the CLIs. Returns
+    the ISLA launches of the Ours-ED main path (3 steps, the CLIs' runs and
+    sampling), the captured calls' sums and the step times."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp_dir, "special")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ours = _ours_ed_steps(seed, root, dev, card, reps)
+    l2i = _layout2im_steps(seed, dev, card)
+    clis = _special_clis(seed, root, dev)
+    launches = tuple(a + b for a, b in zip(ours["launches"], clis))
+    shutil.rmtree(root, ignore_errors=True)
+    phase("special", f"main path ran the ISLA forward kernel {launches[0]} times, the backward's "
+          f"main kernel {launches[1]} and its finishing kernel {launches[2]} times; "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"launches": launches, "ours_ed": ours, "layout2im": l2i}
+
+
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
     """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
     import numpy as np
@@ -2328,6 +2634,14 @@ def main(argv=None) -> int:
             for row, n in zip((fwd, bwd, fin), counts):
                 row["launches_eval"] = n
                 row["launches"] = row.get("launches", 0) + n
+        if "special" in phases:
+            special = special_phase(args.seed, tmp_dir, dev, card, max(5, args.reps // 20))
+            for row, n in zip((fwd, bwd, fin), special["launches"]):
+                row["launches_special"] = n
+                row["launches"] = row.get("launches", 0) + n
+            f_ms, pf_ms, f_bound, b_ms, pb_ms, b_bound = special["ours_ed"]["sums"]
+            fwd.update(ms_f32_ours_ed=f_ms, plain_ms_f32_ours_ed=pf_ms, bound_ms_f32_ours_ed=f_bound)
+            bwd.update(ms_f32_ours_ed=b_ms, plain_ms_f32_ours_ed=pb_ms, bound_ms_f32_ours_ed=b_bound)
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

@@ -13,6 +13,12 @@ reference's ``obD.`` inner-module prefix, as ``CombineDiscriminator*``
 wrappers hold it (``cli.train --torch_ckpt_d`` strips it).
 ``--module_prefix`` prepends ``module.`` (a DataParallel save). The newest
 checkpoint is exported. Runs on the host.
+
+``--model`` names the checkpoint's experiment: ``ours_ed`` exports the
+two-stream generator in the reference's ``background_foreground_generator``
+format (and its ``d64`` under ``obD.``); ``layout2im`` is refused, as in the
+JAX CLI: the reference's layout2im fork stores its checkpoints in another
+format.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--model", default="context_app_v2", help="the checkpoint's experiment")
     p.add_argument("--ckpt_dir", required=True, help="cli.train checkpoint dir")
     p.add_argument("--out_g", default="", help="output .pth for the generator")
     p.add_argument("--out_d", default="", help="output .pth for the discriminator")
@@ -40,7 +47,12 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.out_g and not args.out_d:
         raise SystemExit("nothing to do: pass --out_g and/or --out_d")
+    if args.model == "layout2im":
+        raise SystemExit("layout2im has no torch export: the reference's layout2im fork stores "
+                         "checkpoints in a different format (SURVEY.md §2.3)")
     ck = CheckpointManager(args.ckpt_dir).read()
+    if ("combination.conv1.weight" in ck["generator"]) != (args.model == "ours_ed"):
+        raise SystemExit(f"the checkpoint in {args.ckpt_dir} is not a --model {args.model} one")
     prefix = "module." if args.module_prefix else ""
     if args.out_g:
         sd = {**ck["generator"], **({} if args.no_ema else ck.get("ema", {}))}

@@ -3,15 +3,15 @@ one ``--model`` flag names the generator/discriminator pair and the image
 size of each of the reference's train scripts.
 
 The special families (``ours_ed``, fg/bg two-stream; ``layout2im``,
-CVAE-GAN) stay in the map, as in the JAX package, but are not ported:
-``experiment`` raises for them.
+CVAE-GAN) are in the map as in the JAX package. Their preset names are not
+presets of ``make_generator``/``make_discriminator``: their trainers build
+the networks with the families' own constructors (``train/step_bgfg.py``,
+``train/step_layout2im.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-
-_ROADMAP_SPECIAL = "ROADMAP.md §1 'Slices still to port', item 5 (special families)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,15 +53,10 @@ EXPERIMENTS: dict[str, Experiment] = {
 
 
 def experiment(name: str) -> Experiment:
-    """The LostGAN-family experiment ``name``; unknown names raise
-    ``ValueError``, the special families ``NotImplementedError``."""
+    """The experiment ``name``; unknown names raise ``ValueError``."""
     if name not in EXPERIMENTS:
         raise ValueError(f"unknown --model {name!r}. Choices: {', '.join(sorted(EXPERIMENTS))}")
-    exp = EXPERIMENTS[name]
-    if exp.special:
-        raise NotImplementedError(f"--model {name} ({exp.description}) is not ported yet: "
-                                  f"{_ROADMAP_SPECIAL}")
-    return exp
+    return EXPERIMENTS[name]
 
 
 def dataset_spec(dataset: str) -> tuple[int, int]:

@@ -24,7 +24,15 @@ four batches of COCO-shaped layouts over the generator's classes.
 
 Runs on the GPU; ``--device cpu`` asks for the CPU. ``--obj_budget`` is
 refused where compaction is not exact (the v1 mask trunk, legacy
-attention); the special families raise ``NotImplementedError``.
+attention).
+
+The special families sample from ``--ckpt_dir`` only, as in the JAX CLI
+(``layout2img_tpu/cli/sample.py:95-165``), their sizes read off the
+checkpoint: ``--model ours_ed`` splits each layout into its fg/bg streams
+(``train/step_bgfg.py::make_bgfg_sample_fn``); ``--model layout2im`` runs
+``Layout2ImGenerator.sample`` with ``--l2i_fusion`` as trained, on the
+layouts' box masks, which ``--bf16`` casts to the serving dtype with the
+weights and latents. ``--obj_budget`` is refused for both.
 """
 
 from __future__ import annotations
@@ -61,6 +69,9 @@ def parse_args(argv=None):
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--max_layouts", type=int, default=0, help="stop after this many (0 = all)")
     p.add_argument("--truncation", type=float, default=2.0)
+    p.add_argument("--l2i_fusion", default="transformer",
+                   choices=["transformer", "convlstm", "transformer_decoder", "transformer_noctx"],
+                   help="--model layout2im: the fusion it was trained with")
     p.add_argument("--obj_budget", type=int, default=0,
                    help="serve only the first K valid-compacted object slots (0 = all)")
     p.add_argument("--bf16", action="store_true", help="serve in bfloat16 (boxes stay f32)")
@@ -137,9 +148,42 @@ def layout_batches(args, num_classes: int):
         yield {"boxes": batch["boxes"], "labels": batch["labels"]}
 
 
+def special_sampler(args, device: torch.device, dtype: torch.dtype):
+    """(sample(batch, rng) -> images, its generator's class count) for a
+    special family's newest checkpoint in ``--ckpt_dir``."""
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+
+    sd = CheckpointManager(args.ckpt_dir).read()["generator"]
+    if args.model == "ours_ed":
+        from layout2img_tpu_torch.data.coco import split_fg_bg_batch
+        from layout2img_tpu_torch.models.generators import BgFgGenerator
+        from layout2img_tpu_torch.train.step_bgfg import make_bgfg_sample_fn
+
+        num_bg = sd["background_g.label_embedding.weight"].shape[0]
+        gen = BgFgGenerator(sd["foreground_g.label_embedding.weight"].shape[0], num_bg,
+                            ch=sd["final.2.weight_orig"].shape[1])
+        gen.load_state_dict(sd, strict=True)
+        cast_floating(gen.to(device).eval(), dtype)
+        draw = make_bgfg_sample_fn(gen, truncation=args.truncation, dtype=dtype)
+        return (lambda batch, rng: draw(split_fg_bg_batch(batch), rng)), 91 + num_bg
+
+    from layout2img_tpu_torch.models.layout2im import Layout2ImGenerator
+    from layout2img_tpu_torch.train.step_layout2im import make_layout2im_sample_fn
+
+    num_classes = sd["crop_encoder.bn1.gamma.weight"].shape[0]
+    gen = Layout2ImGenerator(num_classes, fusion=args.l2i_fusion,
+                             z_dim=sd["crop_encoder.fc_mu.weight"].shape[0],
+                             conv_dim=sd["decoder.c4.weight"].shape[1])
+    gen.load_state_dict(sd, strict=True)
+    cast_floating(gen.to(device).eval(), dtype)
+    return make_layout2im_sample_fn(gen, truncation=args.truncation, dtype=dtype), num_classes
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if experiment(args.model).special:
+        return main_special(args, device)
     sources = [s for s in ("ckpt_dir", "torch_ckpt", "weights") if getattr(args, s)]
     if len(sources) != 1:
         raise SystemExit("give one of --ckpt_dir, --torch_ckpt and --weights")
@@ -156,19 +200,39 @@ def main(argv=None):
     sample = make_sample_fn(gen, z_dim=gen.z_dim, truncation=args.truncation, dtype=dtype,
                             obj_budget=args.obj_budget)
 
+    write_samples(args, lambda batch, rng: sample(torch.from_numpy(batch["boxes"]),
+                                                  torch.from_numpy(batch["labels"]), rng),
+                  gen.label_embedding.num_embeddings, device)
+
+
+def write_samples(args, draw, num_classes: int, device: torch.device) -> None:
+    """``--num_img`` draws of ``draw(batch, rng)`` for each batch of the
+    run's layouts, written as JPEGs; latents from ``--seed``."""
     os.makedirs(args.sample_path, exist_ok=True)
     z_rng = torch.Generator(device=device).manual_seed(args.seed)
     idx = 0
-    for batch in layout_batches(args, gen.label_embedding.num_embeddings):
+    for batch in layout_batches(args, num_classes):
         batch, n = pad_tail(batch, args.batch_size)
-        boxes, labels = torch.from_numpy(batch["boxes"]), torch.from_numpy(batch["labels"])
         for j in range(args.num_img):
-            images = sample(boxes, labels, z_rng).float().cpu().numpy()[:n]
-            write_images(images, args.sample_path, idx, j)
+            write_images(draw(batch, z_rng).float().cpu().numpy()[:n], args.sample_path, idx, j)
         idx += n
         if args.max_layouts and idx >= args.max_layouts:
             break
     print(f"wrote {idx} layouts x {args.num_img} samples to {args.sample_path}")
+
+
+def main_special(args, device: torch.device) -> None:
+    """``cli.sample`` for ``--model ours_ed`` and ``--model layout2im``."""
+    if not args.ckpt_dir or args.torch_ckpt or args.weights:
+        raise SystemExit(f"{args.model} sampling requires --ckpt_dir (and no other source)")
+    if args.obj_budget:
+        raise SystemExit(f"--obj_budget is a LostGAN-family flag; --model {args.model} has no "
+                         "object-budget serving path")
+    if args.img_size not in (0, 64):
+        raise SystemExit(f"--model {args.model} is a 64px family; got --img_size {args.img_size}")
+    args.img_size = 64
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    write_samples(args, *special_sampler(args, device, dtype), device)
 
 
 if __name__ == "__main__":

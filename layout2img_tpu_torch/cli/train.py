@@ -49,10 +49,28 @@ the live generator's buffers). ``--steps N`` caps the steps this run takes
 Without ``--mixed_precision`` the step runs in f32 with TF32 off in cuDNN
 and matmul, as the JAX package's default ``TrainConfig`` does. The object
 budgets are checked against the dataset's valid-object counts. The flags of
-later slices raise ``NotImplementedError`` naming their ROADMAP item: the special
-families (``--l2i_fusion``, ``--model ours_ed|layout2im``) and multi-GPU
-(``--model_parallel``, ``--mp_mode``, ``--preempt_sync_every``). Runs on the
-GPU; ``--device cpu`` asks for the CPU.
+multi-GPU (``--model_parallel``, ``--mp_mode``, ``--preempt_sync_every``)
+raise ``NotImplementedError`` naming their ROADMAP item. Runs on the GPU;
+``--device cpu`` asks for the CPU.
+
+The special families (``layout2img_tpu/cli/train.py::main_special``), 64 px
+only, through the same loop (resume, saves, SIGTERM, NaN guard and drill,
+``--eval_every``, ``--async_ckpt``) and the same output layout, with no fake
+grids and no ``.pth`` files at the end (the checkpoint is the output):
+
+- ``--model ours_ed``: ``BgFgGenerator`` (``--ch``; the foreground streams
+  over classes 1-90, the background over the rest, shifted by -91) against
+  ``d64``, ``train/step_bgfg.py``; each batch is split into the two streams
+  (``data.coco.split_fg_bg_batch``). ``--mixed_precision`` is accepted and
+  the step stays f32, as in the JAX package.
+- ``--model layout2im``: ``Layout2ImGenerator(fusion=--l2i_fusion)`` at the
+  JAX CLI's width (conv_dim 64 whatever ``--ch``) against the image and
+  object discriminators at ``--ch``, ``train/step_layout2im.py``.
+
+The object budgets are refused for them as in the JAX CLI, and so are the
+LostGAN step's knobs, which have no path there (``--ema_decay``,
+``--fused_d``, ``--remat``, ``--remat_d_blocks``, ``--torch_ckpt_g/d``,
+``--profile_dir``).
 """
 
 from __future__ import annotations
@@ -145,8 +163,10 @@ def parse_args(argv=None):
     p.add_argument("--inception_weights", default="",
                    help="torchvision inception_v3 .pth for --eval_every (none = fixed-seed random "
                         "filters; rel-FID is then a relative trajectory, IS is skipped)")
+    p.add_argument("--l2i_fusion", default="transformer",
+                   choices=["transformer", "convlstm", "transformer_decoder", "transformer_noctx"],
+                   help="--model layout2im: the layout encoder's fusion over objects")
     # later slices: set, they raise
-    p.add_argument("--l2i_fusion", default=None, help="not ported (ROADMAP §1 item 5)")
     p.add_argument("--model_parallel", type=int, default=1, help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--mp_mode", default=None, help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--preempt_sync_every", type=int, default=None,
@@ -158,8 +178,7 @@ def parse_args(argv=None):
 def refuse_later_slices(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of a set flag that a
     later slice ports."""
-    later = ((5, "--l2i_fusion", args.l2i_fusion is not None),
-             (6, "--model_parallel", args.model_parallel != 1),
+    later = ((6, "--model_parallel", args.model_parallel != 1),
              (6, "--mp_mode", args.mp_mode is not None),
              (6, "--preempt_sync_every", args.preempt_sync_every is not None))
     for item, flag, given in later:
@@ -181,10 +200,11 @@ def check_img_size(args, exp) -> None:
                          f"{exp.image_size} are accepted as debug runs.)")
 
 
-def build_dataset(args, num_objects: int, eval_mode: bool = False):
+def build_dataset(args, num_objects: int, eval_mode: bool = False, fg_bg: bool = False):
     """The run's batch source: a ``HostDataLoader`` over COCO or VG, or a
     ``SyntheticLayoutDataset``. ``eval_mode``: no flip doubling, no
-    shuffle, the tail batch kept (the reference's test protocol)."""
+    shuffle, the tail batch kept (the reference's test protocol). ``fg_bg``:
+    COCO items carry the Ours-ED streams."""
     from layout2img_tpu_torch.data.coco import CocoLayoutDataset, HostDataLoader
     from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
     from layout2img_tpu_torch.data.vg import VgLayoutDataset
@@ -192,7 +212,8 @@ def build_dataset(args, num_objects: int, eval_mode: bool = False):
     load = dict(shuffle=not eval_mode, drop_last=not eval_mode)
     if args.dataset == "coco":
         ds = CocoLayoutDataset(args.coco_image_dir, args.coco_instances, args.coco_stuff,
-                               image_size=args.img_size, left_right_flip=not eval_mode)
+                               image_size=args.img_size, left_right_flip=not eval_mode,
+                               fg_bg_split=fg_bg)
     elif args.dataset == "vg":
         ds = VgLayoutDataset(args.vg_vocab, args.vg_h5, args.vg_image_dir,
                              image_size=args.img_size, max_objects=num_objects - 1,
@@ -271,6 +292,8 @@ def main(argv=None):
     refuse_later_slices(args)
     device = resolve_device(args.device)
     exp = experiment(args.model)
+    if exp.special:
+        return main_special(args, device)
     check_img_size(args, exp)
     loader = build_dataset(args, dataset_spec(args.dataset)[1])
     check_obj_budgets(getattr(loader, "dataset", loader).valid_object_counts(), args)
@@ -288,15 +311,10 @@ def main(argv=None):
 def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: str,
           log: logging.Logger, writer) -> None:
     """The loop of ``layout2img_tpu/cli/train.py::main`` on built networks."""
-    from layout2img_tpu_torch.data.prefetch import device_prefetch
-    from layout2img_tpu_torch.losses.perceptual import VGGLoss
-    from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
     from layout2img_tpu_torch.train.eval_hook import make_train_sample_fn
     from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
     from layout2img_tpu_torch.train.step import make_train_step
-    from layout2img_tpu_torch.utils.convert import init_vgg
-    from layout2img_tpu_torch.utils.reference import (load_torch_into_state,
-                                                      load_torch_vgg19_features)
+    from layout2img_tpu_torch.utils.reference import load_torch_into_state
 
     device = next(gen.parameters()).device
     ds = getattr(loader, "dataset", None)
@@ -308,31 +326,67 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
                       mixed_precision=args.mixed_precision, ema_decay=args.ema_decay,
                       fused_d=args.fused_d, remat=args.remat, d_obj_budget=args.d_obj_budget,
                       g_obj_budget=args.g_obj_budget)
-    vgg = None
-    if cfg.use_vgg_loss:
-        if args.vgg_weights:
-            vgg = VGGLoss(load_torch_vgg19_features(args.vgg_weights, device))
-        else:
-            log.warning("no --vgg_weights given; using fixed-seed random VGG filters")
-            vgg = VGGLoss(init_vgg(args.seed + 2, device=device))
+    vgg = _vgg_loss(args, device, log) if cfg.use_vgg_loss else None
     state = create_train_state(gen, disc, cfg)
     if args.torch_ckpt_g or args.torch_ckpt_d:
         load_torch_into_state(state, args.torch_ckpt_g or None, args.torch_ckpt_d or None)
         log.info("fine-tuning from torch checkpoints: G=%s D=%s", args.torch_ckpt_g or "-",
                  args.torch_ckpt_d or "-")
+    sample_fn = make_train_sample_fn(gen)
 
+    def fake_grid(batch: dict, step: int) -> torch.Tensor:
+        grid_rng = torch.Generator(device=device).manual_seed(step)
+        return sample_fn(state.ema, batch["boxes"][:16], batch["labels"][:16], grid_rng)
+
+    evaluator = build_evaluator(args, sample_fn, loader, device, log) if args.eval_every > 0 else None
+    precision = "mixed precision" if cfg.mixed_precision else "f32"
+    if not run_loop(args, state, make_train_step(state, cfg, vgg_loss=vgg), evaluator, loader,
+                    ("images", "labels", "boxes"), out_dir, log, writer, precision,
+                    fake_grid=fake_grid):
+        raise SystemExit(3)
+    written = {"G.pth": gen.state_dict(), "D.pth": disc.state_dict()}
+    if state.ema is not None:
+        written["G_ema.pth"] = ema_state_dict(gen, state.ema)
+    for name, sd in written.items():
+        torch.save(sd, os.path.join(out_dir, name))
+    log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
+
+
+def _vgg_loss(args, device: torch.device, log: logging.Logger):
+    """The VGG perceptual loss: ``--vgg_weights``, else seeded random filters."""
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.utils.convert import init_vgg
+    from layout2img_tpu_torch.utils.reference import load_torch_vgg19_features
+
+    if args.vgg_weights:
+        return VGGLoss(load_torch_vgg19_features(args.vgg_weights, device))
+    log.warning("no --vgg_weights given; using fixed-seed random VGG filters")
+    return VGGLoss(init_vgg(args.seed + 2, device=device))
+
+
+def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out_dir: str,
+             log: logging.Logger, writer, precision: str, prepare=None, fake_grid=None) -> bool:
+    """The training loop shared by every family: restore the newest
+    checkpoint into ``state`` on ``--resume`` (in place, so ``step_fn``,
+    built on it, trains on), then per host batch (``prepare``d, its
+    ``keys`` copied to the device ahead) one ``step_fn(batch, rng)``;
+    metrics, grids (the real images, and ``fake_grid(batch, step)`` when
+    given) and NaN checks at ``--log_every``, ``evaluator(state)`` (if any)
+    every ``--eval_every`` steps, saves every ``--save_every_epochs`` and at
+    the end, the SIGTERM save. Returns False when the run diverged (the last
+    good checkpoint kept)."""
+    from layout2img_tpu_torch.data.prefetch import device_prefetch
+    from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
+
+    device = next(state.generator.parameters()).device
     ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
     if args.resume and ckpt.latest_step() is not None:
         ckpt.restore(state)
         log.info("resumed from step %d", state.step)
     if args.async_ckpt:
         ckpt = AsyncSaver(ckpt)
-    step_fn = make_train_step(state, cfg, vgg_loss=vgg)
-    sample_fn = make_train_sample_fn(gen)
-    evaluator = build_evaluator(args, sample_fn, loader, device, log) if args.eval_every > 0 else None
     log.info("training %s on %s (%s): batch %d, %s, from step %d", args.model, args.dataset,
-             device, args.batch_size, "mixed precision" if cfg.mixed_precision else "f32",
-             state.step)
+             device, args.batch_size, precision, state.step)
 
     preempted = {"flag": False}
     prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
@@ -361,9 +415,11 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
     stop = diverged = capped = False
     try:
         for epoch in range(args.total_epoch):
-            host = ({k: b[k] for k in ("images", "labels", "boxes")} for b in loader)
+            host = ({k: b[k] for k in keys} for b in map(prepare or (lambda b: b), loader))
             for batch in device_prefetch(host, device, size=2):
-                batch["labels"] = batch["labels"].long()
+                for k in keys:
+                    if k.startswith("labels"):
+                        batch[k] = batch[k].long()
                 if args.profile_dir and state.step == 10:
                     prof = _start_profiler(device)
                 metrics = step_fn(batch, z_rng)
@@ -383,9 +439,8 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
                     log.info("epoch %d step %d: %s", epoch + 1, state.step,
                              {k: round(v, 4) for k, v in m.items()})
                     writer.write(state.step, m)
-                    grid_rng = torch.Generator(device=device).manual_seed(state.step)
-                    writer.write_images(state.step, "fake", sample_fn(
-                        state.ema, batch["boxes"][:16], batch["labels"][:16], grid_rng))
+                    if fake_grid is not None:
+                        writer.write_images(state.step, "fake", fake_grid(batch, state.step))
                     writer.write_images(state.step, "real", batch["images"][:16])
                 if evaluator is not None and state.step % args.eval_every == 0:
                     em = evaluator(state)
@@ -420,27 +475,115 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
             _stop_profiler(prof, args.profile_dir, log)
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
-    if diverged:
-        raise SystemExit(3)
-    written = {"G.pth": gen.state_dict(), "D.pth": disc.state_dict()}
-    if state.ema is not None:
-        written["G_ema.pth"] = ema_state_dict(gen, state.ema)
-    for name, sd in written.items():
-        torch.save(sd, os.path.join(out_dir, name))
-    log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
+    return not diverged
 
 
-def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.Logger):
+# the LostGAN step's knobs, which the special families' steps have no path for
+_SPECIAL_REFUSED = (("--ema_decay", "ema_decay", 0.0), ("--fused_d", "fused_d", False),
+                    ("--remat", "remat", "none"), ("--remat_d_blocks", "remat_d_blocks", 0),
+                    ("--torch_ckpt_g", "torch_ckpt_g", ""), ("--torch_ckpt_d", "torch_ckpt_d", ""),
+                    ("--profile_dir", "profile_dir", ""))
+
+
+def main_special(args, device: torch.device) -> None:
+    """The Ours-ED and layout2im trainers (``layout2img_tpu/cli/train.py::main_special``)."""
+    from layout2img_tpu_torch.utils.logging import MetricWriter, close_logger, setup_logger
+
+    if args.g_obj_budget or args.d_obj_budget:
+        raise SystemExit(f"--g_obj_budget/--d_obj_budget are LostGAN-family flags; --model "
+                         f"{args.model} has no object-budget path")
+    given = [flag for flag, name, default in _SPECIAL_REFUSED if getattr(args, name) != default]
+    if given:
+        raise SystemExit(f"{', '.join(given)}: LostGAN-step flags; --model {args.model} has no "
+                         "path for them")
+    if args.img_size not in (0, 64):
+        raise SystemExit(f"--model {args.model} is a 64px family; got --img_size {args.img_size}")
+    args.img_size = 64
+    num_classes, num_objects = dataset_spec(args.dataset)
+    out_dir = os.path.join(args.out_path, args.dataset, str(args.img_size), args.model)
+    log = setup_logger("layout2img_tpu_torch", out_dir)
+    writer = MetricWriter(out_dir, tensorboard=args.tensorboard)
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        if args.model == "ours_ed":
+            family = _ours_ed(args, num_classes, num_objects, device, log)
+        else:
+            family = _layout2im(args, num_classes, num_objects, device, log)
+        state, step_fn, evaluator, loader, keys, prepare = family
+        if not run_loop(args, state, step_fn, evaluator, loader, keys, out_dir, log, writer,
+                        "f32", prepare=prepare):
+            raise SystemExit(3)
+        log.info("done: %d steps", state.step)
+    finally:
+        writer.close()
+        close_logger(log)
+
+
+def _ours_ed(args, num_classes: int, num_objects: int, device: torch.device, log):
+    """Ours-ED's (state, step_fn, evaluator or None, loader, batch keys,
+    batch preparation) for ``run_loop``."""
+    from layout2img_tpu_torch.data.coco import split_fg_bg_batch
+    from layout2img_tpu_torch.train.state import TrainConfig
+    from layout2img_tpu_torch.train.step_bgfg import (STREAM_KEYS, create_bgfg_state,
+                                                      make_bgfg_sample_fn, make_bgfg_train_step)
+    from layout2img_tpu_torch.utils.convert import init_bgfg_generator, init_discriminator
+
+    if args.mixed_precision:
+        log.warning("--mixed_precision: the Ours-ED step runs in f32 (as the JAX package's, "
+                    "which never reads the flag)")
+    loader = build_dataset(args, num_objects, fg_bg=True)
+    gen = init_bgfg_generator(args.seed, 91, num_classes - 91, device=device, ch=args.ch)
+    disc = init_discriminator(args.seed + 1, num_classes, preset="d64", device=device, ch=args.ch)
+    cfg = TrainConfig(g_lr=args.g_lr, d_lr=args.d_lr, use_vgg_loss=not args.no_vgg,
+                      mixed_precision=args.mixed_precision)
+    vgg = _vgg_loss(args, device, log) if cfg.use_vgg_loss else None
+    state = create_bgfg_state(gen, disc, cfg)
+    evaluator = (build_evaluator(args, make_bgfg_sample_fn(gen), loader, device, log,
+                                 prepare=split_fg_bg_batch) if args.eval_every > 0 else None)
+    return (state, make_bgfg_train_step(state, cfg, vgg_loss=vgg), evaluator, loader,
+            ("images", "labels", "boxes", *STREAM_KEYS), split_fg_bg_batch)
+
+
+def _layout2im(args, num_classes: int, num_objects: int, device: torch.device, log):
+    """layout2im's (state, step_fn, evaluator or None, loader, batch keys,
+    batch preparation) for ``run_loop``."""
+    from layout2img_tpu_torch.train.step_layout2im import (Layout2ImConfig,
+                                                           create_layout2im_state,
+                                                           make_layout2im_sample_fn,
+                                                           make_layout2im_train_step)
+    from layout2img_tpu_torch.utils.convert import (init_layout2im_discriminators,
+                                                    init_layout2im_generator)
+
+    loader = build_dataset(args, num_objects)
+    gen = init_layout2im_generator(args.seed, num_classes, fusion=args.l2i_fusion, device=device)
+    d_img, d_obj = init_layout2im_discriminators(args.seed + 1, num_classes, conv_dim=args.ch,
+                                                 device=device)
+    cfg = Layout2ImConfig(lr_g=args.g_lr, lr_d=args.d_lr)
+    state = create_layout2im_state(gen, d_img, d_obj, cfg)
+    evaluator = (build_evaluator(args, make_layout2im_sample_fn(gen), loader, device, log,
+                                 prepare=lambda b: b) if args.eval_every > 0 else None)
+    return (state, make_layout2im_train_step(state, cfg), evaluator, loader,
+            ("images", "labels", "boxes"), None)
+
+
+def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.Logger,
+                    prepare=None):
     """The ``--eval_every`` hook on a frozen pool of the loader's first
     ``ceil(eval_n / batch_size)`` batches (a loader's pass counts as an
-    epoch, as in the JAX CLI)."""
+    epoch, as in the JAX CLI). With ``prepare`` (the special families) the
+    pool is the prepared batches and ``sample_fn(batch, rng)`` takes whole
+    batches (``PeriodicEval(batch_mode=True)``)."""
     from layout2img_tpu_torch.train.eval_hook import PeriodicEval
 
     batches = iter(loader)
     pool = list(itertools.islice(batches, max(1, -(-args.eval_n // args.batch_size))))
     batches.close()
+    if prepare is not None:
+        pool = [prepare(b) for b in pool]
+        batch_fn = sample_fn
+        sample_fn = lambda params, batch, rng: batch_fn(batch, rng)  # noqa: E731 (no EMA here)
     evaluator = PeriodicEval(sample_fn, pool, inception_weights=args.inception_weights,
-                             device=device, seed=args.seed)
+                             device=device, seed=args.seed, batch_mode=prepare is not None)
     if not evaluator.real_weights:
         log.warning("--eval_every without --inception_weights: rel_fid uses fixed-seed random "
                     "filters (relative trajectory only)")

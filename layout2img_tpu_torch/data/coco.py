@@ -15,7 +15,9 @@ the reference's (``data/cocostuff_loader.py``):
   ``max_samples`` caps the unflipped count and turns the doubling off.
 
 Images are CHW here (the port's NCHW batches); the JAX package's are HWC,
-the same values. The fg/bg split of the Ours-ED family is not ported.
+the same values. ``fg_bg_split=True`` adds the Ours-ED family's two streams
+to each item (``split_fg_bg``); ``split_fg_bg_batch`` adds them to a stacked
+batch.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from typing import Iterator
 import numpy as np
 
 PAD_BOX = (-0.6, -0.6, 0.5, 0.5)
-_ROADMAP_SPECIAL = "ROADMAP.md §1 'Slices still to port', item 5 (special families)"
 
 
 def decode_image(path: str, image_size: int, flip: bool, use_native: bool) -> np.ndarray:
@@ -66,14 +67,12 @@ class CocoLayoutDataset:
                  left_right_flip: bool = False, include_other: bool = False,
                  max_samples: int | None = None, fg_bg_split: bool = False,
                  use_native: bool | None = None):
-        if fg_bg_split:
-            raise NotImplementedError(f"fg_bg_split (the Ours-ED family) is not ported yet: "
-                                      f"{_ROADMAP_SPECIAL}")
         self.image_dir = image_dir
         self.image_size = image_size
         self.max_objects = max_objects_per_image
         self.left_right_flip = left_right_flip
         self.max_samples = max_samples
+        self.fg_bg_split = fg_bg_split
         self.use_native = _default_native() if use_native is None else use_native
 
         with open(instances_json) as f:
@@ -155,14 +154,41 @@ class CocoLayoutDataset:
 
         path = os.path.join(self.image_dir, self.image_id_to_filename[image_id])
         image = decode_image(path, self.image_size, flip, self.use_native)
-        return {"images": np.ascontiguousarray(image.transpose(2, 0, 1)), "labels": labels,
+        item = {"images": np.ascontiguousarray(image.transpose(2, 0, 1)), "labels": labels,
                 "boxes": boxes}
+        if self.fg_bg_split:
+            item.update(split_fg_bg(labels, boxes))
+        return item
 
 
 def split_fg_bg(labels: np.ndarray, boxes: np.ndarray) -> dict:
-    """The Ours-ED fg/bg split (``layout2img_tpu/data/coco.py::split_fg_bg``)."""
-    raise NotImplementedError(f"split_fg_bg (the Ours-ED family) is not ported yet: "
-                              f"{_ROADMAP_SPECIAL}")
+    """The Ours-ED split of one layout (reference
+    ``cocostuff_loader_ours.py:259-295``): thing ids 1-90 are the foreground
+    as they are; stuff ids from 92 the background, shifted by -91; id 91 is
+    dropped. Each stream keeps its objects' order, packed to the front and
+    padded with class 0 and ``PAD_BOX``: ``labels_fg`` (o,) int32,
+    ``boxes_fg`` (o, 4), and the same for ``bg``."""
+    o = labels.shape[0]
+    out = {}
+    for key, sel, shift in (("fg", (labels >= 1) & (labels < 91), 0), ("bg", labels >= 92, 91)):
+        lab = np.zeros(o, np.int32)
+        box = np.tile(np.asarray(PAD_BOX, np.float32), (o, 1))
+        idx = np.nonzero(sel)[0]
+        lab[:len(idx)] = labels[idx] - shift
+        box[:len(idx)] = boxes[idx]
+        out[f"labels_{key}"] = lab
+        out[f"boxes_{key}"] = box
+    return out
+
+
+def split_fg_bg_batch(batch: dict) -> dict:
+    """``split_fg_bg`` over a stacked batch of numpy arrays; a batch that
+    already has the streams is returned as it is."""
+    if "labels_fg" in batch:
+        return batch
+    parts = [split_fg_bg(np.asarray(lab), np.asarray(box))
+             for lab, box in zip(batch["labels"], batch["boxes"])]
+    return {**batch, **{k: np.stack([p[k] for p in parts]) for k in parts[0]}}
 
 
 class HostDataLoader:

@@ -44,7 +44,6 @@ from layout2img_tpu_torch.nn.spectral import SNDense, SNEmbed
 from layout2img_tpu_torch.ops.bbox import xywh_to_xyxy
 from layout2img_tpu_torch.ops.roi import dual_scale_roi_align, roi_align
 
-_ROADMAP_SPECIAL = "ROADMAP.md §1 'Slices still to port', item 5 (special families)"
 # per size: (trunk blocks as (in, out) channel multipliers of ch, 0 = the
 # image, and downsample), the blocks that may be rematerialized, the image
 # score's name
@@ -159,8 +158,9 @@ _DISCRIMINATOR_PRESETS: dict[str, dict[str, Any]] = {
     "d128_app": dict(image_size=128, app_head=True),
     "d256": dict(image_size=256),
 }
-# the layout2im family's discriminator (cli/presets.py), not ported yet
-_SPECIAL_PRESETS = ("layout2im",)
+# the layout2im family's discriminators (cli/presets.py): built by their own constructors
+_SPECIAL_PRESETS = {"layout2im": "models.layout2im.Layout2ImImageDiscriminator and "
+                                 "Layout2ImObjectDiscriminator"}
 
 
 def make_discriminator(preset: str, num_classes: int, device: str | torch.device | None = None,
@@ -170,7 +170,8 @@ def make_discriminator(preset: str, num_classes: int, device: str | torch.device
     power iterations. Fill it with ``load_state_dict`` or
     ``utils.convert.init_discriminator``."""
     if preset in _SPECIAL_PRESETS:
-        raise NotImplementedError(f"preset {preset!r} is not ported yet: {_ROADMAP_SPECIAL}")
+        raise ValueError(f"preset {preset!r} is a special family's discriminator pair, not a "
+                         f"preset of this factory: build it with {_SPECIAL_PRESETS[preset]}")
     if preset not in _DISCRIMINATOR_PRESETS:
         raise ValueError(f"unknown discriminator preset {preset!r}")
     dev = resolve_device(device)

@@ -20,6 +20,15 @@ on the PSP head's and the GCN's dropout). Module names are the reference
 state-dict names, so a dict written by ``layout2img_tpu.cli.export_torch``
 loads with ``strict=True``; the 64px generator names its blocks
 ``res2..res5`` as the reference does (the exporter's ``res_start=2``).
+``rgb_head=False`` is the feature-only variant: the last block's features,
+without the RGB head.
+
+``BgFgGenerator`` is the Ours-ED two-stream generator: two feature-only 64px
+v1 generators, one over the foreground classes and one over the background
+classes, their features concatenated ``[bg, fg]``, a ``CombineResBlock`` and
+the BN-relu-SNConv-tanh head (reference ``resnet_generator_v1.py:358-380``,
+``background_foreground_generator``; its state dict is the one
+``layout2img_tpu.utils.torch_export.export_bgfg_generator`` writes).
 """
 
 from __future__ import annotations
@@ -49,9 +58,6 @@ def _channel_schedule(image_size: int) -> tuple[list[int], list[int]]:
     return mult[:-1], mult[1:]
 
 
-_ROADMAP_SPECIAL = "ROADMAP.md §1 'Slices still to port', item 5 (special families)"
-
-
 class LostGANGenerator(nn.Module):
     def __init__(self, num_classes: int, image_size: int = 128, ch: int = 64, z_dim: int = 128,
                  emb_dim: int = 180, output_dim: int = 3, context: str = "none",
@@ -59,9 +65,6 @@ class LostGANGenerator(nn.Module):
                  num_mask_classes: int = 184, map_size: int = 64, hard_mask_size: int = 0,
                  rgb_head: bool = True, parts: int = 1, legacy_attention: bool = False):
         super().__init__()
-        if not rgb_head:
-            raise NotImplementedError("the feature-only generator (rgb_head=False) serves the "
-                                      f"fg/bg family, not ported yet: {_ROADMAP_SPECIAL}")
         if context not in ("none", "attention", "graph"):
             raise ValueError(f"unknown context {context!r}")
         if mask_trunk not in ("v1", "v2"):
@@ -111,7 +114,8 @@ class LostGANGenerator(nn.Module):
             if predict:
                 self.register_parameter(f"alpha{i + 1}",
                                         nn.Parameter(torch.zeros(1, num_mask_classes, 1)))
-        self.final = nn.Sequential(SyncBatchNorm(ch), nn.ReLU(), SNConv(ch, output_dim, 3), nn.Tanh())
+        self.final = (nn.Sequential(SyncBatchNorm(ch), nn.ReLU(), SNConv(ch, output_dim, 3), nn.Tanh())
+                      if rgb_head else None)
 
     def _block(self, i: int) -> str:
         return f"res{self.res_start + i}"
@@ -125,7 +129,8 @@ class LostGANGenerator(nn.Module):
     def forward(self, z: torch.Tensor, boxes: torch.Tensor, labels: torch.Tensor,
                 z_im: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z (b, o, z_dim); boxes (b, o, 4) xywh in [0, 1]; labels (b, o), 0 = pad;
-        z_im (b, z_dim) -> images (b, 3, h, w) in [-1, 1]."""
+        z_im (b, z_dim) -> images (b, 3, h, w) in [-1, 1], or without the RGB
+        head the features (b, ch, h, w)."""
         b = z.shape[0]
         w = torch.cat([z, self.label_embedding(labels).to(z.dtype)], dim=-1)  # (b, o, num_w)
         if isinstance(self.context, GraphFunc):
@@ -139,7 +144,7 @@ class LostGANGenerator(nn.Module):
             layout = bmask.to(x.dtype)
             for i in range(self.n_blocks):
                 x, _ = getattr(self, self._block(i))(x, w, layout, deterministic)
-            return self.final(x)
+            return x if self.final is None else self.final(x)
 
         hs = self.hard_mask_size
         # masks in the compute dtype: f32 boxes would otherwise promote the
@@ -158,7 +163,59 @@ class LostGANGenerator(nn.Module):
             alpha_full = getattr(self, f"alpha{i + 1}").reshape(-1)
             alpha = torch.sigmoid(alpha_full)[labels].to(x.dtype)[:, :, None, None]
             stage_bbox = resize_bilinear(bmask, (hh, ww)).to(x.dtype) * (1 - alpha) + seman * alpha
-        return self.final(x)
+        return x if self.final is None else self.final(x)
+
+
+class CombineResBlock(nn.Module):
+    """The fg/bg fusion block (reference ``ResBlock_1``,
+    ``resnet_generator_v1.py:324-347``): BN-relu-conv twice, plus a
+    BN-relu-conv3x3 shortcut, with plain convs that have biases. As in the
+    reference, ``conv1`` and ``conv2`` are also ``model.2`` and ``model.5``,
+    so the state dict holds each of them under both names."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.model = nn.Sequential(SyncBatchNorm(in_ch), nn.ReLU(), self.conv1,
+                                   SyncBatchNorm(out_ch), nn.ReLU(), self.conv2)
+        self.bn = SyncBatchNorm(in_ch)
+        self.conv3 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(x) + self.conv3(torch.relu(self.bn(x)))
+
+
+class BgFgGenerator(nn.Module):
+    """Ours-ED, the two-stream foreground/background generator (64 px)."""
+
+    def __init__(self, num_fg_classes: int, num_bg_classes: int, image_size: int = 64,
+                 ch: int = 64, z_dim: int = 128, output_dim: int = 3, context: str = "none"):
+        super().__init__()
+        self.z_dim = z_dim
+        self.image_size = image_size
+        stream = dict(image_size=image_size, ch=ch, z_dim=z_dim, emb_dim=128, mask_trunk="v1",
+                      context=context, rgb_head=False)
+        self.background_g = LostGANGenerator(num_bg_classes, **stream)
+        self.foreground_g = LostGANGenerator(num_fg_classes, **stream)
+        self.combination = CombineResBlock(2 * ch, ch)
+        self.final = nn.Sequential(SyncBatchNorm(ch), nn.ReLU(), SNConv(ch, output_dim, 3), nn.Tanh())
+
+    @property
+    def isla_calls(self) -> int:
+        """ISLA norm calls per forward, both streams."""
+        return self.background_g.isla_calls + self.foreground_g.isla_calls
+
+    def forward(self, z_fg: torch.Tensor, boxes_fg: torch.Tensor, labels_fg: torch.Tensor,
+                z_bg: torch.Tensor, boxes_bg: torch.Tensor, labels_bg: torch.Tensor,
+                z_im_fg: torch.Tensor, z_im_bg: torch.Tensor,
+                deterministic: bool = True) -> torch.Tensor:
+        """Each stream's z (b, o, z_dim), boxes (b, o, 4), labels (b, o) and
+        z_im (b, z_dim), the labels in the stream's own classes (0 = pad) ->
+        images (b, 3, h, w) in [-1, 1]."""
+        fg = self.foreground_g(z_fg, boxes_fg, labels_fg, z_im_fg, deterministic)
+        bg = self.background_g(z_bg, boxes_bg, labels_bg, z_im_bg, deterministic)
+        return self.final(self.combination(torch.cat([bg, fg], dim=1)))
 
 
 _GENERATOR_PRESETS: dict[str, dict[str, Any]] = {
@@ -181,8 +238,9 @@ _GENERATOR_PRESETS: dict[str, dict[str, Any]] = {
     # 256px (resnet_generator_app_v2.py:509): regress canvas 64, occupancy canvas 128
     "ours_d_base256": dict(image_size=256, stage_masks=True, hard_mask_size=128),
 }
-# the special families' generators (cli/presets.py), not ported yet
-_SPECIAL_PRESETS = ("bgfg64", "layout2im64")
+# the special families' generators (cli/presets.py): built by their own constructors
+_SPECIAL_PRESETS = {"bgfg64": "models.generators.BgFgGenerator",
+                    "layout2im64": "models.layout2im.Layout2ImGenerator"}
 
 
 def obj_budget_error(gen: LostGANGenerator) -> str | None:
@@ -205,7 +263,8 @@ def make_generator(preset: str, num_classes: int, device: str | torch.device | N
     """Build a generator with uninitialized weights on ``device`` (default
     cuda). Fill it with ``load_state_dict`` or ``utils.convert.init_generator``."""
     if preset in _SPECIAL_PRESETS:
-        raise NotImplementedError(f"preset {preset!r} is not ported yet: {_ROADMAP_SPECIAL}")
+        raise ValueError(f"preset {preset!r} is a special family's generator, not a preset of "
+                         f"this factory: build it with {_SPECIAL_PRESETS[preset]}")
     if preset not in _GENERATOR_PRESETS:
         raise ValueError(f"unknown generator preset {preset!r}")
     dev = resolve_device(device)

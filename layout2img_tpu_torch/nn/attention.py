@@ -1,5 +1,10 @@
-"""Context attention over per-object style vectors (counterpart of
-``layout2img_tpu/nn/attention.py::BoxMultiHeadedAttention``).
+"""Attention (counterpart of ``layout2img_tpu/nn/attention.py``).
+
+``BoxMultiHeadedAttention`` is the LostGAN family's context attention over
+per-object style vectors, ``MultiHeadAttention`` the layout2im family's
+plain one.
+
+Box attention:
 
 ``softmax(log(max(relu(W_G g), 1e-6)) + QK^T / sqrt(d_k))`` over the object
 tokens, with g the pairwise sinusoidal box embedding; key slots whose label
@@ -72,3 +77,46 @@ class BoxMultiHeadedAttention(nn.Module):
         inner = out
         out = self.linears[3](out)
         return self.layer_norm(out + inner)
+
+
+class MultiHeadAttention(nn.Module):
+    """Plain multi-head attention with the reference's residual and
+    LayerNorm topology (``model_layout2img/transformer.py:42-93``):
+    ``ln1(fc(ln0(attn + query)) + ln0(...))``. Key slots whose label is 0
+    get -1e9 logits, before the 1/sqrt(d_k) scale. ``heads * d_v`` must
+    equal ``d_model`` (the first residual). Dropout (``dropout_rate``, on
+    the attention weights and on ``fc``'s output) runs unless the forward
+    is ``deterministic``, from torch's global generator."""
+
+    def __init__(self, heads: int, d_model: int, d_k: int, d_v: int, dropout_rate: float = 0.1):
+        super().__init__()
+        if heads * d_v != d_model:
+            raise ValueError(f"heads * d_v = {heads * d_v} is not d_model {d_model}")
+        self.heads, self.d_k, self.d_v = heads, d_k, d_v
+        self.dropout_rate = dropout_rate
+        self.w_qs = nn.Linear(d_model, heads * d_k, bias=False)
+        self.w_ks = nn.Linear(d_model, heads * d_k, bias=False)
+        self.w_vs = nn.Linear(d_model, heads * d_v, bias=False)
+        self.ln0 = nn.LayerNorm(d_model, eps=1e-5)
+        self.fc = nn.Linear(heads * d_v, d_model)
+        self.ln1 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
+                labels: torch.Tensor | None = None, deterministic: bool = True) -> torch.Tensor:
+        """query (b, q, d_model); key, value (b, k, d_model); labels (b, k), 0 = pad."""
+        b, nq, _ = query.shape
+        h = self.heads
+        drop = 0.0 if deterministic else self.dropout_rate
+        q = self.w_qs(query).reshape(b, nq, h, self.d_k).transpose(1, 2)
+        k = self.w_ks(key).reshape(b, -1, h, self.d_k).transpose(1, 2)
+        v = self.w_vs(value).reshape(b, -1, h, self.d_v).transpose(1, 2)
+        logits = q @ k.transpose(-1, -2)
+        if labels is not None:
+            logits = logits.masked_fill((labels == 0)[:, None, None, :], -1e9)
+        attn = torch.softmax(logits / math.sqrt(self.d_k), dim=-1)
+        attn = torch.nn.functional.dropout(attn, drop, training=drop > 0)
+        out = (attn @ v).transpose(1, 2).reshape(b, nq, h * self.d_v)
+        out = self.ln0(out + query)
+        inner = out
+        out = torch.nn.functional.dropout(self.fc(out), drop, training=drop > 0)
+        return self.ln1(out + inner)

@@ -7,7 +7,9 @@ bilinear kernel, which loops over every map inside each output pixel's
 thread; that took most of a full-width forward's device time on an H100.)
 Nearest resize gathers constant indices; adaptive pooling is torch's own
 ``F.adaptive_avg_pool2d``. The box-dependent splat builds two bilinear
-sampling matrices from the boxes and applies them as batched matmuls.
+sampling matrices from the boxes and applies them as batched matmuls; so
+do ``crop_boxes`` (each object's box cut out of its image, the layout2im
+family's crops) and its inverse ``paste_boxes``.
 """
 
 from __future__ import annotations
@@ -133,3 +135,43 @@ def masks_to_layout(boxes: torch.Tensor, masks: torch.Tensor, h: int, w: int | N
     wx = sample_matrix_1d(sx, m).to(masks.dtype)  # (b, o, w, m)
     wy = sample_matrix_1d(sy, m).to(masks.dtype)  # (b, o, h, m)
     return wy @ masks @ wx.transpose(-1, -2)
+
+
+def paste_boxes(crops: torch.Tensor, boxes: torch.Tensor, h: int, w: int | None = None) -> torch.Tensor:
+    """The inverse of ``crop_boxes``: splat per-object crops into their box
+    footprint on an (h, w) canvas, zero outside (``masks_to_layout`` with
+    channels).
+
+    crops (b, o, c, m, m); boxes (b, o, 4) xywh -> (b, o, c, h, w).
+    """
+    if w is None:
+        w = h
+    m = crops.shape[-1]
+    x0, y0, bw, bh = (t[..., None] for t in boxes.unbind(-1))
+    gx = 2.0 * (linspace01(w, boxes) - x0) / bw - 1.0
+    gy = 2.0 * (linspace01(h, boxes) - y0) / bh - 1.0
+    sx = ((gx + 1.0) * m - 1.0) / 2.0
+    sy = ((gy + 1.0) * m - 1.0) / 2.0
+    wx = sample_matrix_1d(sx, m).to(crops.dtype)  # (b, o, w, m)
+    wy = sample_matrix_1d(sy, m).to(crops.dtype)  # (b, o, h, m)
+    return wy[:, :, None] @ crops @ wx.transpose(-1, -2)[:, :, None]
+
+
+def crop_boxes(images: torch.Tensor, boxes: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Each object's box cut out of its image and resized to (out, out),
+    differentiably: the reference's ``crop_bbox_batch`` (``grid_sample`` on a
+    grid that spans the box with both ends included, align_corners=False,
+    bilinear, zero padding) as two sampling matrices.
+
+    images (b, c, h, w); boxes (b, o, 4) xywh in [0, 1] -> (b, o, c, out, out).
+    """
+    h, w = images.shape[-2:]
+    x0, y0, bw, bh = (t[..., None] for t in boxes.unbind(-1))  # each (b, o, 1)
+    lin = linspace01(out_size, boxes)
+    gx = 2.0 * (x0 + lin * bw) - 1.0  # (b, o, out)
+    gy = 2.0 * (y0 + lin * bh) - 1.0
+    sx = ((gx + 1.0) * w - 1.0) / 2.0
+    sy = ((gy + 1.0) * h - 1.0) / 2.0
+    wx = sample_matrix_1d(sx, w).to(images.dtype)  # (b, o, out, w)
+    wy = sample_matrix_1d(sy, h).to(images.dtype)  # (b, o, out, h)
+    return wy[:, :, None] @ images[:, None] @ wx.transpose(-1, -2)[:, :, None]

@@ -24,8 +24,22 @@ and ``eval/lpips.py::load_torch_lpips``: the eval nets' flax variables ->
 torchvision-named state dicts of ``eval.inception.InceptionV3`` and
 ``eval.lpips.LPIPS``.
 
-``init_generator``, ``init_discriminator`` and ``init_vgg`` give seeded random
-weights where no JAX checkpoint is at hand (the GPU machine has no JAX).
+``bgfg_generator_state_dict_from_jax`` is ``export_bgfg_generator``'s copy for
+the Ours-ED generator: both streams as 64px feature-only generators under
+``background_g.``/``foreground_g.``, the ``combination`` block (its convs
+plain, and ``conv1``/``conv2`` repeated as ``model.2``/``model.5``) and the
+RGB head. ``layout2im_state_dict_from_jax`` maps the layout2im family's
+variables (the generator or either discriminator; JAX has no reference
+export for them) onto the port's names, which follow the JAX module names:
+kernels and tables as above, a flax ``ConvTranspose`` kernel (kh, kw, in,
+out) flipped in both spatial axes into ``ConvTranspose2d``'s (in, out, kh,
+kw), LayerNorm and BN ``scale`` -> ``weight``, BN statistics ->
+``running_mean``/``running_var``, the decoder's learned ``query`` as it is.
+
+``init_generator``, ``init_discriminator``, ``init_bgfg_generator``,
+``init_layout2im_generator``, ``init_layout2im_discriminators`` and
+``init_vgg`` give seeded random weights where no JAX checkpoint is at hand
+(the GPU machine has no JAX).
 """
 
 from __future__ import annotations
@@ -38,7 +52,12 @@ from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.eval.lpips import ALEX_CONV_INDEX
 from layout2img_tpu_torch.losses.perceptual import VGG19_CFG, VGG19Features
 from layout2img_tpu_torch.models.discriminators import LayoutDiscriminator, make_discriminator
-from layout2img_tpu_torch.models.generators import LostGANGenerator, make_generator
+from layout2img_tpu_torch.models.generators import BgFgGenerator, LostGANGenerator, make_generator
+from layout2img_tpu_torch.models.layout2im import (ConditionalBatchNorm, Layout2ImGenerator,
+                                                   Layout2ImImageDiscriminator,
+                                                   Layout2ImObjectDiscriminator, MaskedBatchNorm,
+                                                   TransformerDecoder)
+from layout2img_tpu_torch.nn.attention import MultiHeadAttention
 from layout2img_tpu_torch.nn.gcn import GraphConvolution
 from layout2img_tpu_torch.nn.norms import SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, _SNWeight
@@ -169,8 +188,9 @@ def generator_state_dict_from_jax(variables: dict, res_start: int = 1) -> dict[s
         e.emit(f"alpha{i}", _np(p[f"alpha{i}"]).reshape(1, -1, 1))
         i += 1
 
-    e.bn("final.0", ("final_bn",))
-    e.conv("final.2", ("final_conv",), sn=True)
+    if "final_conv" in p:  # the feature-only generators have no RGB head
+        e.bn("final.0", ("final_bn",))
+        e.conv("final.2", ("final_conv",), sn=True)
 
     e.linear("mask_regress.fc", ("mask_regress", "fc"), sn=True)
     for mine, name in (("conv1", "conv1.0"), ("conv2", "conv2.0"),
@@ -180,6 +200,85 @@ def generator_state_dict_from_jax(variables: dict, res_start: int = 1) -> dict[s
         if mine in e.stats.get("mask_regress", {}):  # the v1 trunk
             e.bn(f"mask_regress.{name}", ("mask_regress", mine))
     return {k: torch.from_numpy(np.array(v)) for k, v in e.out.items()}
+
+
+def bgfg_generator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``BgFgGenerator`` variables -> the port's (and the reference's)
+    state dict, key for key ``export_bgfg_generator``'s."""
+    out: dict[str, torch.Tensor] = {}
+    for stream in ("background_g", "foreground_g"):
+        sub = {kind: variables.get(kind, {}).get(stream, {})
+               for kind in ("params", "batch_stats", "spectral")}
+        out.update({f"{stream}.{k}": v
+                    for k, v in generator_state_dict_from_jax(sub, res_start=2).items()})
+    e = _Converter(variables)
+    for name, mine in (("model.0", "bn1"), ("model.3", "bn2"), ("bn", "bn_sc")):
+        e.bn(f"combination.{name}", ("combination", mine))
+    for conv in ("conv1", "conv2", "conv3"):
+        e.conv(f"combination.{conv}", ("combination", conv), sn=False)
+    for alias, real in (("model.2", "conv1"), ("model.5", "conv2")):
+        for kind in ("weight", "bias"):
+            e.out[f"combination.{alias}.{kind}"] = e.out[f"combination.{real}.{kind}"]
+    e.bn("final.0", ("final_bn",))
+    e.conv("final.2", ("final_conv",), sn=True)
+    out.update({k: torch.from_numpy(np.array(v)) for k, v in e.out.items()})
+    return out
+
+
+def layout2im_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """JAX ``Layout2ImGenerator``, ``Layout2ImImageDiscriminator`` or
+    ``Layout2ImObjectDiscriminator`` variables -> the port module's state
+    dict. A layer with an entry in ``spectral`` is spectrally normalized."""
+    e = _Converter({"params": {}, **variables})
+
+    def is_sn(path) -> bool:
+        try:
+            e._get(e.spectral, path)
+            return True
+        except KeyError:
+            return False
+
+    def walk(node: dict, path: tuple[str, ...]) -> None:
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            name = ".".join(path)
+
+            def key(leaf: str) -> str:
+                return f"{name}.{leaf}" if name else leaf
+
+            arr = _np(v)
+            if k in ("kernel", "embedding"):
+                if k == "kernel" and arr.ndim == 4:
+                    arr = (np.flip(arr, (0, 1)).transpose(2, 3, 0, 1) if path[-1].startswith("dc")
+                           else arr.transpose(3, 2, 0, 1))
+                elif k == "kernel":
+                    arr = arr.T
+                if is_sn(path):
+                    e._sn(name, arr, path)
+                else:
+                    e.emit(key("weight"), arr)
+            elif k in ("bias", "query"):
+                e.emit(key(k), arr)
+            elif k == "scale":
+                e.emit(key("weight"), arr)
+            else:
+                raise ValueError(f"unknown layout2im parameter {path + (k,)}")
+
+    walk(e.params, ())
+    stats = {}
+
+    def walk_stats(node: dict, path: tuple[str, ...]) -> None:
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk_stats(v, path + (k,))
+            else:
+                leaf = {"mean": "running_mean", "var": "running_var"}[k]
+                stats[".".join(path + (leaf,))] = _np(v)
+
+    walk_stats(e.stats, ())
+    return {k: torch.from_numpy(np.array(v)) for k, v in {**e.out, **stats}.items()}
 
 
 def discriminator_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
@@ -327,6 +426,98 @@ def init_discriminator(seed: int, num_classes: int, preset: str = "d128_app",
     disc = make_discriminator(preset, num_classes, device="cpu", **overrides)
     _init_(disc, torch.Generator().manual_seed(seed))
     return disc.to(dev)
+
+
+def _empty(cls, *args, **kwargs) -> nn.Module:
+    """``cls(*args, **kwargs)`` on the CPU in eval mode, its tensors
+    allocated but not filled (built on the meta device: no default init
+    draws from torch's global generator)."""
+    with torch.device("meta"):
+        net = cls(*args, **kwargs)
+    return net.to_empty(device="cpu").eval()
+
+
+def init_bgfg_generator(seed: int, num_fg_classes: int = 91, num_bg_classes: int = 93,
+                        device: str | torch.device | None = None, **overrides) -> BgFgGenerator:
+    """The Ours-ED generator with seeded random weights, on ``device``
+    (default cuda), drawn on the CPU as ``init_generator`` draws them; the
+    combination block's plain convs xavier-uniform, as the JAX package's."""
+    dev = resolve_device(device)
+    gen = _empty(BgFgGenerator, num_fg_classes, num_bg_classes, **overrides)
+    g = torch.Generator().manual_seed(seed)
+    _init_(gen, g)
+    with torch.no_grad():
+        for conv in (gen.combination.conv1, gen.combination.conv2, gen.combination.conv3):
+            nn.init.xavier_uniform_(conv.weight, generator=g)
+    return gen.to(dev)
+
+
+@torch.no_grad()
+def _init_layout2im_(net: nn.Module, g: torch.Generator) -> None:
+    """``_init_`` with the layout2im family's initializers on top, as the
+    JAX modules draw them: lecun-normal convs, transposed convs and linears
+    (the attention's projections normal with std sqrt(2 / (d_model + d_k)),
+    its ``fc`` xavier-normal), the label embedding normal with std
+    dim^-1/2, the conditional BN's gamma N(0, 0.02) and beta 0, the
+    decoder's query uniform in [0, 1)."""
+    _init_(net, g)
+
+    def lecun(w: torch.Tensor, fan_in: int) -> None:
+        w.normal_(std=fan_in ** -0.5, generator=g)
+
+    for mod in net.modules():
+        if isinstance(mod, nn.ConvTranspose2d):
+            lecun(mod.weight, mod.weight.shape[0] * mod.weight[0, 0].numel())
+        elif isinstance(mod, nn.Linear):
+            lecun(mod.weight, mod.in_features)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, MaskedBatchNorm):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+            if mod.weight is not None:
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+        elif isinstance(mod, TransformerDecoder):
+            mod.query.uniform_(0.0, 1.0, generator=g)
+    for mod in net.modules():  # after the generic linears above
+        if isinstance(mod, MultiHeadAttention):
+            d_model = mod.ln0.normalized_shape[0]
+            for lin, d in ((mod.w_qs, mod.d_k), (mod.w_ks, mod.d_k), (mod.w_vs, mod.d_v)):
+                lin.weight.normal_(std=(2.0 / (d_model + d)) ** 0.5, generator=g)
+            nn.init.xavier_normal_(mod.fc.weight, generator=g)
+        elif isinstance(mod, ConditionalBatchNorm):
+            mod.gamma.weight.normal_(std=0.02, generator=g)
+            mod.beta.weight.zero_()
+    if isinstance(net, Layout2ImGenerator):
+        emb = net.layout_encoder.embedding.weight
+        emb.normal_(std=emb.shape[1] ** -0.5, generator=g)
+
+
+def init_layout2im_generator(seed: int, num_classes: int, fusion: str = "transformer",
+                             device: str | torch.device | None = None,
+                             **overrides) -> Layout2ImGenerator:
+    """The layout2im generator with seeded random weights, on ``device``
+    (default cuda), drawn on the CPU."""
+    dev = resolve_device(device)
+    gen = _empty(Layout2ImGenerator, num_classes, fusion=fusion, **overrides)
+    _init_layout2im_(gen, torch.Generator().manual_seed(seed))
+    return gen.to(dev)
+
+
+def init_layout2im_discriminators(seed: int, num_classes: int, conv_dim: int = 64,
+                                  device: str | torch.device | None = None
+                                  ) -> tuple[Layout2ImImageDiscriminator,
+                                             Layout2ImObjectDiscriminator]:
+    """The layout2im image and object discriminators (spectrally normalized,
+    as the trainers build them) with seeded random weights (the object D's
+    from ``seed + 1``), on ``device`` (default cuda), in eval mode."""
+    dev = resolve_device(device)
+    d_img = _empty(Layout2ImImageDiscriminator, conv_dim)
+    d_obj = _empty(Layout2ImObjectDiscriminator, num_classes, conv_dim)
+    _init_layout2im_(d_img, torch.Generator().manual_seed(seed))
+    _init_layout2im_(d_obj, torch.Generator().manual_seed(seed + 1))
+    return d_img.to(dev), d_obj.to(dev)
 
 
 def init_vgg(seed: int, device: str | torch.device | None = None) -> VGG19Features:

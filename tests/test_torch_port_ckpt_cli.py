@@ -20,7 +20,7 @@ on the CPU at a tiny size (ch=4, 64 px).
   the same dicts (``legacy_attention``), the same latents and batch: every
   first-step loss within 2e-3 (``PERF.md`` §6's loss bar).
 - ``cli/sample.py --ckpt_dir`` (EMA preferred) and ``--dataset coco``;
-  ``cli/export_torch.py`` round-trips; the flags of later slices raise.
+  ``cli/export_torch.py`` round-trips; the multi-GPU flags raise, ``--l2i_fusion`` parses.
 """
 
 import json
@@ -293,6 +293,15 @@ def test_nan_guard_keeps_the_last_good_checkpoint(tmp_path, caplog, case):
                                        (["--model_parallel", "2"], 6), (["--mp_mode", "spatial"], 6),
                                        (["--preempt_sync_every", "5"], 6)])
 def test_later_slice_flags_name_the_roadmap(tmp_path, flag, item):
+    """Multi-GPU's flags (item 6) raise; ``--l2i_fusion`` (item 5, ported)
+    is the layout2im fusion flag, checked against its choices."""
+    if item == 5:
+        args = train_cli.parse_args([*SYNTH, *flag])
+        assert args.l2i_fusion == "convlstm"
+        train_cli.refuse_later_slices(args)
+        with pytest.raises(SystemExit):
+            train_cli.parse_args([*SYNTH, "--l2i_fusion", "no_such_fusion"])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 .*item {item}"):
         train_cli.main([*SYNTH, "--out_path", str(tmp_path / "o"), *flag])
     assert not (tmp_path / "o").exists()

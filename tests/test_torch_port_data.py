@@ -12,7 +12,7 @@
   ``tests/test_native.py``'s bars of PIL; ``shuffle_indices`` is equal.
 - ``cli/preprocess_vg.py`` writes the same vocabulary and h5 datasets.
 - ``SyntheticLayoutDataset``, ``MetricWriter`` (JSONL lines, PNG grid) and
-  the CPU prefetch; the fg/bg split raises naming ROADMAP §1 item 5.
+  the CPU prefetch; the fg/bg split of the Ours-ED family against JAX's.
 """
 
 import json
@@ -294,8 +294,13 @@ def test_cpu_prefetch_converts_and_raises():
 
 
 def test_fg_bg_split_names_the_roadmap(coco_fixture):
+    """The Ours-ED split is ported (ROADMAP §1 item 5): items of
+    ``fg_bg_split=True`` carry the two streams, equal to JAX's."""
     root, inst, stuff = coco_fixture
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 .*item 5"):
-        coco.CocoLayoutDataset(root, inst, stuff, fg_bg_split=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        coco.split_fg_bg(np.zeros(8, np.int32), np.zeros((8, 4), np.float32))
+    ds = coco.CocoLayoutDataset(root, inst, stuff, fg_bg_split=True)
+    ref = jax_coco.CocoLayoutDataset(root, inst, stuff, fg_bg_split=True)
+    for k in ("labels_fg", "boxes_fg", "labels_bg", "boxes_bg"):
+        assert np.array_equal(ds[0][k], ref[0][k]), k
+    got = coco.split_fg_bg(np.zeros(8, np.int32), np.zeros((8, 4), np.float32))
+    assert not got["labels_fg"].any() and not got["labels_bg"].any()
+    assert np.array_equal(got["boxes_bg"], np.tile(np.float32(coco.PAD_BOX), (8, 1)))

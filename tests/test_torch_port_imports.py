@@ -30,9 +30,10 @@ print(json.dumps({"names": names, "bad": bad, "lazy": lazy}))
 _MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export_torch", "cli.prepare_eval_images",
             "cli.preprocess_vg", "cli.presets", "cli.sample", "cli.train", "cli.visualize",
             "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg", "eval",
-            "eval.inception", "eval.lpips", "eval.metrics", "nn.gcn", "nn.mask_regress",
-            "nn.remat", "train.checkpoint", "train.ema", "train.eval_hook", "train.step",
-            "utils.casting", "utils.logging", "utils.reference")
+            "eval.inception", "eval.lpips", "eval.metrics", "models.convlstm", "models.layout2im",
+            "nn.builders", "nn.gcn", "nn.mask_regress", "nn.remat", "train.checkpoint",
+            "train.ema", "train.eval_hook", "train.step", "train.step_bgfg",
+            "train.step_layout2im", "utils.casting", "utils.logging", "utils.reference")
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +69,8 @@ def _no_cuda(monkeypatch):
                                    "make_discriminator", "init_discriminator", "init_vgg",
                                    "train_cli", "train_cli_knobs", "bench", "sample_cli_ckpt",
                                    "train_cli_coco", "train_cli_eval", "evaluate_cli",
-                                   "bench_eval"])
+                                   "bench_eval", "train_cli_ours_ed", "train_cli_layout2im",
+                                   "sample_cli_special", "init_special"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
     from layout2img_tpu_torch import bench, bench_eval
@@ -78,7 +80,9 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     from layout2img_tpu_torch.device import resolve_device
     from layout2img_tpu_torch.models.discriminators import make_discriminator
     from layout2img_tpu_torch.models.generators import make_generator
-    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
+    from layout2img_tpu_torch.utils.convert import (init_bgfg_generator, init_discriminator,
+                                                    init_generator, init_layout2im_discriminators,
+                                                    init_layout2im_generator, init_vgg)
 
     calls = {
         "make_generator": lambda: make_generator("ours_d_context128", 10, ch=4, num_mask_classes=10),
@@ -105,6 +109,16 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
         "evaluate_cli": lambda: evaluate_cli.main(["fid", "--dir", str(tmp_path / "missing"),
                                                    "--save_stats", str(tmp_path / "out")]),
         "bench_eval": lambda: bench_eval.main([]),
+        "train_cli_ours_ed": lambda: train_cli.main(["--model", "ours_ed", "--steps", "1",
+                                                     "--ch", "4", "--out_path", str(tmp_path / "out")]),
+        "train_cli_layout2im": lambda: train_cli.main([
+            "--model", "layout2im", "--l2i_fusion", "convlstm", "--steps", "1", "--ch", "4",
+            "--out_path", str(tmp_path / "out")]),
+        "sample_cli_special": lambda: sample_cli.main([
+            "--model", "layout2im", "--ckpt_dir", str(tmp_path / "ckpt"),
+            "--sample_path", str(tmp_path / "out")]),
+        "init_special": lambda: (init_bgfg_generator(0, ch=4), init_layout2im_generator(0, 10),
+                                 init_layout2im_discriminators(0, 10, conv_dim=4)),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -121,13 +135,13 @@ def test_cpu_is_used_only_when_asked(monkeypatch):
 
 
 def test_unported_presets_name_the_roadmap():
-    """Every LostGAN preset is ported; the special families' generators
-    name the ROADMAP."""
+    """Every LostGAN preset is ported; the special families' generator
+    names are no presets of the factory, which names their constructors."""
     from layout2img_tpu_torch.models.generators import _GENERATOR_PRESETS, make_generator
 
     assert len(_GENERATOR_PRESETS) == 9
-    for preset in ("bgfg64", "layout2im64"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for preset, ctor in (("bgfg64", "BgFgGenerator"), ("layout2im64", "Layout2ImGenerator")):
+        with pytest.raises(ValueError, match=f"build it with models.*{ctor}"):
             make_generator(preset, 10, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
         make_generator("no_such_preset", 10, device="cpu")
@@ -150,11 +164,11 @@ def test_unported_train_config_knobs_name_the_roadmap(knob):
 
 
 def test_unported_discriminators_name_the_roadmap():
-    """Every LostGAN D preset is ported; the layout2im family's D names the
-    ROADMAP."""
+    """Every LostGAN D preset is ported; the layout2im family's D name is no
+    preset of the factory, which names its constructors."""
     from layout2img_tpu_torch.models.discriminators import make_discriminator
 
     for preset in ("d128", "d64", "d256"):
         assert make_discriminator(preset, 10, device="cpu", ch=2).image_size == int(preset[1:])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Layout2ImImageDiscriminator and Layout2ImObjectDiscr"):
         make_discriminator("layout2im", 10, device="cpu")

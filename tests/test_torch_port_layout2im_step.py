@@ -1,0 +1,209 @@
+"""The port's layout2im train step against the JAX package's, on the CPU.
+
+One step of ``make_layout2im_train_step`` at ``fusion="convlstm"`` (the
+fusion without dropout, whose JAX draws torch cannot reproduce), the
+generator at conv_dim 8 (the test-only ``SmallJaxGenerator``), both
+discriminators at conv_dim 4, b=2, o=4 with pad slots: the JAX package's
+own step on a state around the port's seeded weights (handed to JAX by the
+inverse of the converter), and the port's step from the same variables with the
+JAX step's z_rand and VAE noise (drawn from its key as it draws them)
+given to ``with_latents``. JAX's gradients are its Adams' first moments
+(beta1 = 0). Bars, as ``tests/test_torch_port_train.py`` sets them: losses
+2e-3; each gradient tensor's error norm within 1e-3 of its norm, and a
+gradient whose norm is under 1e-5 of the net's largest (round-off of an
+exact zero: a bias before a batch-statistics BN) within an absolute 1e-6
+of that largest; BN running statistics (the generator's, folded by both
+crop-encoder calls, both layout-encoder calls and both decoder calls) and
+SN u vectors (six D calls and four more in the G loss) at 1e-5;
+parameters after the step within 2*lr of JAX's (a gradient sign flip, plus
+1e-6 for their round-off), and under 1% of the elements whose JAX gradient
+exceeds 1e-6 beyond 1e-6.
+
+The transformer fusions' dropout is live in the port's step: two seeds of
+the dropout's generator give two losses, ``deterministic=True`` one, and
+``train_step(batch, rng)`` is a function of ``rng``.
+"""
+
+import functools
+
+import numpy as np
+import optax
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from layout2img_tpu.models import layout2im as jl
+from layout2img_tpu.ops.bbox import bbox_mask as jax_bbox_mask
+from layout2img_tpu.ops.interp import crop_boxes as jax_crop_boxes
+from layout2img_tpu.train.state import GANTrainState as JaxGANTrainState
+from layout2img_tpu.train.step_layout2im import Layout2ImConfig as JaxLayout2ImConfig
+from layout2img_tpu.train.step_layout2im import make_layout2im_train_step as jax_make_step
+from layout2img_tpu_torch.models import layout2im as pl
+from layout2img_tpu_torch.train.step_layout2im import (Layout2ImConfig, create_layout2im_state,
+                                                       make_layout2im_train_step)
+from layout2img_tpu_torch.utils.convert import (init_layout2im_discriminators,
+                                                init_layout2im_generator,
+                                                layout2im_state_dict_from_jax)
+from test_torch_port_layout2im import (B, CD, NC, O, Z, SmallJaxGenerator, _seeded, _t,
+                                      jax_variables)
+from test_torch_port_layout2im import inputs  # noqa: F401  (fixture)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+
+D_CD, LR = 4, 1e-4
+
+
+def _tree(params, rest) -> dict:
+    return jax.tree_util.tree_map(np.asarray, {"params": params, **rest})
+
+
+def _disc_dict(params, rest) -> dict:
+    out = {}
+    for part in ("img", "obj"):
+        sub = {"params": params[part], **rest[part]}
+        out.update({f"{part}.{k}": v for k, v in layout2im_state_dict_from_jax(
+            jax.tree_util.tree_map(np.asarray, sub)).items()})
+    return out
+
+
+@pytest.fixture(scope="module")
+def step_pair(inputs):
+    a = inputs
+    batch = {"images": a["images"], "labels": a["labels"], "boxes": a["boxes"]}
+    cfg = JaxLayout2ImConfig()
+    assert cfg.beta1 == 0.0  # so Adam's first moment after one step is the gradient
+    gen = SmallJaxGenerator(num_classes=NC, fusion="convlstm")
+    d_img = jl.Layout2ImImageDiscriminator(conv_dim=D_CD)
+    d_obj = jl.Layout2ImObjectDiscriminator(num_classes=NC, conv_dim=D_CD)
+    # the JAX state around the port's seeded weights (create_layout2im_state
+    # would spend half a minute compiling the inits)
+    masks = jax_bbox_mask(a["boxes"], 64, 64)
+    port_g = _seeded(pl.Layout2ImGenerator(NC, fusion="convlstm", conv_dim=CD), 0)
+    g_vars = jax_variables(gen, port_g, a["images"], a["labels"], a["boxes"], masks, a["z"],
+                           jax.random.PRNGKey(0))
+    crops = jax_crop_boxes(a["images"], a["boxes"], 32)
+    di_vars = jax_variables(d_img, _seeded(pl.Layout2ImImageDiscriminator(D_CD), 1), a["images"])
+    do_vars = jax_variables(d_obj, _seeded(pl.Layout2ImObjectDiscriminator(NC, D_CD), 2), crops,
+                            a["labels"])
+    tx = optax.adam(cfg.lr_g, b1=cfg.beta1, b2=cfg.beta2)
+    rest = lambda v: {k: x for k, x in v.items() if k != "params"}  # noqa: E731
+    d_params = {"img": di_vars["params"], "obj": do_vars["params"]}
+    state = JaxGANTrainState(step=jnp.zeros((), jnp.int32), g_params=g_vars["params"],
+                             g_state=rest(g_vars), d_params=d_params,
+                             d_state={"img": rest(di_vars), "obj": rest(do_vars)},
+                             g_opt_state=tx.init(g_vars["params"]), d_opt_state=tx.init(d_params),
+                             g_tx=tx, d_tx=tx)
+    key = jax.random.PRNGKey(1)
+    # the JAX step's z_rand and VAE noise, drawn from its key as it draws them
+    rng_z, rng_vae, _ = jax.random.split(key, 3)
+    z_rand = np.asarray(jax.random.normal(rng_z, (B, O, Z)))
+    eps = [np.asarray(jax.random.normal(k, (B * O, Z))).reshape(B, O, Z)
+           for k in jax.random.split(rng_vae)]
+    # XLA's lowest backend optimization level: about half the compile time of
+    # this step, whose results agree with the optimized build's at round-off
+    step = jax.jit(jax_make_step(gen, d_img, d_obj, cfg)).lower(state, batch, key).compile(
+        {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True})
+    new, metrics = step(state, batch, key)
+    want = {
+        "g": layout2im_state_dict_from_jax(_tree(new.g_params, new.g_state)),
+        "d": _disc_dict(new.d_params, new.d_state),
+        "g_grad": layout2im_state_dict_from_jax(_tree(new.g_opt_state[0].mu, state.g_state)),
+        "d_grad": _disc_dict(new.d_opt_state[0].mu, state.d_state),
+        "metrics": {k: float(v) for k, v in metrics.items()},
+    }
+
+    g = pl.Layout2ImGenerator(NC, fusion="convlstm", conv_dim=CD)
+    g.load_state_dict(layout2im_state_dict_from_jax(_tree(state.g_params, state.g_state)),
+                      strict=True)
+    di = pl.Layout2ImImageDiscriminator(D_CD)
+    do = pl.Layout2ImObjectDiscriminator(NC, D_CD)
+    port = create_layout2im_state(g, di, do, Layout2ImConfig())
+    port.discriminator.load_state_dict(_disc_dict(state.d_params, state.d_state), strict=True)
+    tb = {"images": _t(a["images"]).permute(0, 3, 1, 2).contiguous(),
+          "labels": _t(a["labels"]).long(), "boxes": _t(a["boxes"])}
+    got = make_layout2im_train_step(port, Layout2ImConfig()).with_latents(
+        tb, _t(z_rand), _t(eps[0]), _t(eps[1]))
+    return want, port, got
+
+
+def test_step_losses_match_jax(step_pair):
+    want, port, got = step_pair
+    assert set(got) == set(want["metrics"]) and port.step == 1
+    for k, v in want["metrics"].items():
+        assert abs(got[k].item() - v) <= 2e-3, (k, got[k].item(), v)
+
+
+@pytest.mark.parametrize("net", ["generator", "discriminator"])
+def test_step_gradients_params_and_state_match_jax(step_pair, net):
+    want, port, _ = step_pair
+    module = getattr(port, net)
+    key = net[0]
+    grads, sd = want[f"{key}_grad"], want[key]
+    params = dict(module.named_parameters())
+    largest = max(np.linalg.norm(grads[n].numpy()) for n in params)
+    for name, p in params.items():
+        w = grads[name].numpy()
+        err, norm = np.linalg.norm(p.grad.numpy() - w), np.linalg.norm(w)
+        bar = 1e-6 * largest if norm < 1e-5 * largest else 1e-3 * norm
+        assert err <= bar, (name, err, norm)
+    beyond = total = held = 0
+    for name, t in module.state_dict().items():
+        w = sd[name].numpy()
+        if name in params:
+            diff = np.abs(t.numpy() - w)
+            assert diff.max() <= 2 * LR + 1e-6, (name, diff.max())
+            sized = np.abs(grads[name].numpy()) > 1e-6
+            beyond += int((diff[sized] > 1e-6).sum())
+            total += int(sized.sum())
+        elif name.endswith(("weight_u", "running_mean", "running_var")):
+            np.testing.assert_allclose(t.numpy(), w, atol=1e-5, rtol=0, err_msg=name)
+            held += 1
+    assert total > 1000 and beyond < 0.01 * total, (beyond, total)
+    assert held > 30
+
+
+@pytest.fixture(scope="module")
+def transformer_step(inputs):
+    """``(metrics of with_latents(deterministic, seed of the dropout draws),
+    metrics of train_step(rng seed))`` of fresh states of the transformer
+    fusion (conv_dim 64, the JAX package's fixed d_model), Ds at conv_dim 4."""
+    a = inputs
+    batch = {"images": _t(a["images"]).permute(0, 3, 1, 2).contiguous(),
+             "labels": _t(a["labels"]).long(), "boxes": _t(a["boxes"])}
+    g = torch.Generator().manual_seed(3)
+    latents = [torch.randn(B, O, Z, generator=g) for _ in range(3)]
+    gen = init_layout2im_generator(0, NC, fusion="transformer", device="cpu")
+    discs = init_layout2im_discriminators(1, NC, conv_dim=D_CD, device="cpu")
+    g_sd = {k: v.clone() for k, v in gen.state_dict().items()}
+    d_sd = [{k: v.clone() for k, v in d.state_dict().items()} for d in discs]
+
+    def fresh():
+        gen.load_state_dict(g_sd)
+        for d, sd in zip(discs, d_sd):
+            d.load_state_dict(sd)
+        state = create_layout2im_state(gen, *discs, Layout2ImConfig())
+        return make_layout2im_train_step(state, Layout2ImConfig())
+
+    def with_latents(deterministic: bool, seed: int) -> float:
+        torch.manual_seed(seed)
+        return fresh().with_latents(batch, *latents, deterministic=deterministic)["g_loss"].item()
+
+    def train_step(seed: int) -> dict:
+        return {k: v.item() for k, v in fresh()(batch, torch.Generator().manual_seed(seed)).items()}
+
+    return functools.partial(with_latents), train_step
+
+
+def test_transformer_dropout_is_live(transformer_step):
+    with_latents, _ = transformer_step
+    assert abs(with_latents(False, 1) - with_latents(False, 2)) > 1e-4
+    assert with_latents(True, 1) == with_latents(True, 2)
+
+
+def test_train_step_is_a_function_of_its_rng(transformer_step):
+    _, train_step = transformer_step
+    first = train_step(5)
+    assert all(np.isfinite(v) for v in first.values())
+    assert train_step(5) == first
+    assert train_step(6)["g_loss"] != first["g_loss"]

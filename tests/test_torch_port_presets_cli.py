@@ -7,8 +7,8 @@
   as the JAX bench builds it).
 - Guards: a generator object budget on the v1 trunk (which couples slots
   through its BN) is refused by the step, the sampler, the bench and both
-  CLIs; the special families (``ours_ed``, ``layout2im``) raise
-  ``NotImplementedError`` naming ROADMAP §1 item 5.
+  CLIs; the special families (``ours_ed``, ``layout2im``) resolve and run
+  through the CLIs, and the LostGAN factories name their constructors.
 - The GCN's dropout runs only when the step is not ``deterministic``, and
   its recompute under remat "g" draws the forward's mask (the remat step
   equals the plain one from the same seed).
@@ -113,18 +113,37 @@ def test_v1_budget_refused_by_bench_and_clis(tmp_path):
 @pytest.mark.parametrize("call", ["experiment", "train_cli", "sample_cli", "make_generator",
                                   "make_discriminator"])
 def test_special_families_name_the_roadmap(tmp_path, call):
-    calls = {
-        "experiment": lambda: presets.experiment("ours_ed"),
-        "train_cli": lambda: train_cli.main(["--model", "layout2im", "--device", "cpu",
-                                             "--out_path", str(tmp_path / "o")]),
-        "sample_cli": lambda: sample_cli.main(["--model", "ours_ed", "--weights",
-                                               str(tmp_path / "G.pth"), "--device", "cpu"]),
-        "make_generator": lambda: make_generator("bgfg64", NC, device="cpu"),
-        "make_discriminator": lambda: make_discriminator("layout2im", NC, device="cpu"),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 .*item 5"):
-        calls[call]()
-    assert not (tmp_path / "o").exists()
+    """The special families are ported (ROADMAP §1 item 5): the experiments
+    resolve, the CLIs run them, and the LostGAN factories name the
+    constructors that build their networks."""
+    out = str(tmp_path / "o")
+    if call == "experiment":
+        for name, gen, disc in (("ours_ed", "bgfg64", "d64"), ("layout2im", "layout2im64",
+                                                               "layout2im")):
+            exp = presets.experiment(name)
+            assert exp.special and (exp.gen_preset, exp.disc_preset, exp.image_size) == (
+                gen, disc, 64)
+    elif call == "train_cli":
+        train_cli.main(["--model", "layout2im", "--l2i_fusion", "convlstm", "--steps", "1",
+                        "--batch_size", "2", "--ch", "4", "--device", "cpu", "--out_path", out])
+        assert os.listdir(os.path.join(out, "synthetic", "64", "layout2im", "ckpt")) == ["1"]
+    elif call == "sample_cli":
+        train_cli.main(["--model", "ours_ed", "--steps", "1", "--batch_size", "2", "--ch", "4",
+                        "--no_vgg", "--device", "cpu", "--out_path", out])
+        samples = str(tmp_path / "s")
+        sample_cli.main(["--model", "ours_ed", "--ckpt_dir",
+                         os.path.join(out, "synthetic", "64", "ours_ed", "ckpt"), "--num_img", "1",
+                         "--batch_size", "2", "--max_layouts", "2", "--sample_path", samples,
+                         "--device", "cpu"])
+        assert len(os.listdir(samples)) == 2
+    elif call == "make_generator":
+        with pytest.raises(ValueError, match="build it with models.generators.BgFgGenerator"):
+            make_generator("bgfg64", NC, device="cpu")
+        with pytest.raises(ValueError, match="models.layout2im.Layout2ImGenerator"):
+            make_generator("layout2im64", NC, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="models.layout2im.Layout2ImImageDiscriminator"):
+            make_discriminator("layout2im", NC, device="cpu")
 
 
 def test_every_lostgan_experiment_is_ported():
