@@ -6,7 +6,7 @@
 Run it from the root of a checkout. It builds the port's CUDA kernels from
 the checkout's sources (``nvcc`` into ``build/kernels/``) and runs these
 phases in order, each printing its own lines; any failure exits non-zero.
-With no arguments it runs every phase with 100 timed launches per kernel
+With no arguments it runs every phase with 50 timed launches per kernel
 and shape; ``--phases`` picks some (``rate`` needs ``slice``,
 ``train_rate`` needs ``train``) and ``--reps`` sets the timed launches
 (a fifth of them, at least 5, for the b=128 calls of ``train_mixed``):
@@ -65,7 +65,8 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               calls of one mixed step at the bench's shapes (b=128: o=8, and
               o=31 cut to 12 by both budgets) against the plain versions, with
               their times; the port's bench (``layout2img_tpu_torch/bench.py``)
-              in both configurations and the f32 step at b=32; the profiler's
+              in both configurations (10 warm-up and 20 timed steps each)
+              and the f32 step at b=32; the profiler's
               breakdown of one mixed b=128 step.
 11. presets -- every other LostGAN experiment of ``cli/presets.py``
               (``ours_d``, ``context_app``, ``context_nogeo``,
@@ -109,8 +110,8 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               128 px, 2 at 64, 2 at 256) and LPIPS with the port's seeded
               random weights on the card against the CPU at the CPU tests'
               bars, and the pool3 variance; ``cli.train --eval_every 2
-              --eval_n 16`` (``context_app_v2``, ch=64, b=8, f32, VGG on, 4
-              steps): rel_fid at steps 2 and 4, 10 forward ISLA launches per
+              --eval_n 16`` (``context_app_v2``, ch=64, b=8, f32, VGG on, 2
+              steps): rel_fid at step 2, 10 forward ISLA launches per
               step, per image grid and per eval batch; one ``PeriodicEval``
               call on a full-width train state, which equals itself bit for
               bit before and after, timed as G sampling, Inception and the
@@ -139,7 +140,26 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               batch), ``cli.train --model layout2im``, ``cli.sample
               --ckpt_dir`` for both, ``cli.evaluate is`` on the Ours-ED
               samples, ``cli.export_torch --model ours_ed`` (loads strictly).
-15. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+15. export -- the serving artifact at the CLI's defaults (``context_app_v2``:
+              ch=64, 128 px, 184 classes, o=8): a checkpoint with an EMA
+              written through the train state; ``cli.export`` in f32 and
+              with ``--bf16`` at b=8, and with ``--bf16`` at b=128; an eager forward after the
+              exports is a real tensor equal bit for bit to one before them;
+              the sidecar; ``--run`` (f32) in a fresh process that imports no
+              module of ``models/``; each artifact holds 10 ISLA operator
+              nodes and no plain-twin einsum; the b=8 artifacts for seeds 0
+              and 1 against the eager EMA generator on ``latents_from_seed``
+              (f32 1e-5, bf16 1e-2; the seeds differ; the raw weights' images
+              differ), 10 forward launches a call by the counts and the
+              profiler; artifact and eager sampler ms per batch and img/s for
+              each artifact (10 batches at b=8, 5 at b=128).
+16. conditioning -- ``scripts/train_conditioning_check.py`` for the flagship
+              at its defaults (12 classes, o=4, b=32, 64 px, ch=24, mixed
+              precision, 16 chunks of 50 steps): the score before, every 200
+              steps and after, the wall time, 8 bf16 launches of each ISLA
+              kernel per step (two norms a block, 4 blocks at 64 px); the
+              script's own gate decides the phase.
+17. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -169,7 +189,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets", "data", "eval", "special")
+          "train_mixed", "presets", "data", "eval", "special", "export", "conditioning")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -305,7 +325,7 @@ def build_phase() -> None:
         phase("build", f"csrc/{name}.cu: built in {s:.1f}s; per kernel: {usage}; {spills}")
 
 
-def kernel_phase(reps: int = 100) -> dict:
+def kernel_phase(reps: int = 50) -> dict:
     import torch
 
     from layout2img_tpu_torch.ops.interp import resize_bilinear
@@ -427,7 +447,7 @@ def device_kernels(calls: list) -> list[str]:
                                        if e.device_type == torch.autograd.DeviceType.CUDA)]
 
 
-def kernel_bwd_phase(reps: int = 100) -> tuple[dict, dict]:
+def kernel_bwd_phase(reps: int = 50) -> tuple[dict, dict]:
     """The ISLA backward (two kernels per call) against autograd of the plain
     version, at the ten shapes of one forward; bars against max|plain| of
     each gradient: 1e-4 in f32 (sums over up to 131k pixels in another
@@ -581,7 +601,7 @@ def kernel_bwd_phase(reps: int = 100) -> tuple[dict, dict]:
     return bwd, fin
 
 
-def bwd_vg_phase(reps: int = 100) -> dict:
+def bwd_vg_phase(reps: int = 50) -> dict:
     """The ISLA backward on Visual Genome traffic (``stage_masks`` pattern
     ``vg``) through the port's public entry points alone (``isla_norm``,
     ``isla_norm_backward``, ``isla_norm_plain``, ``batch_stats``), so that the
@@ -1362,8 +1382,8 @@ def train_mixed_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | Non
 
     # ---- the kernels at the bench's shapes, the bench's rates, the profile ----
     out = {"launches": launches}
-    configs = (("bench default", bench.BenchConfig(), 8),
-               ("bench VG budgeted", bench.BenchConfig(obj=31, classes=179, valid_max=10,
+    configs = (("bench default", bench.BenchConfig(scans=2), 8),
+               ("bench VG budgeted", bench.BenchConfig(scans=2, obj=31, classes=179, valid_max=10,
                                                        d_obj_budget=12, g_obj_budget=12), 12))
     for tag, cfg, want_o in configs:
         built = bench.build(cfg, dev)
@@ -2172,7 +2192,7 @@ def eval_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
 
     # cli.train with --eval_every at full width
     out = os.path.join(root, "out")
-    steps, every = 4, 2
+    steps, every = 2, 2
     counts = _cli_train("cli.train --eval_every", [
         "--model", "context_app_v2", "--dataset", "synthetic", "--batch_size", str(EVAL_B),
         "--steps", str(steps), "--eval_every", str(every), "--eval_n", str(EVAL_N),
@@ -2180,7 +2200,7 @@ def eval_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
     run = os.path.join(out, "synthetic", "128", "context_app_v2")
     lines = _logged(run)
     evals = [ln for ln in lines if "rel_fid" in ln]
-    need([ln["step"] for ln in evals] == [2, 4],
+    need([ln["step"] for ln in evals] == list(range(every, steps + 1, every)),
          f"rel_fid logged at {[ln['step'] for ln in evals]}")
     need(all(math.isfinite(ln["rel_fid"]) and ln["rel_fid"] >= 0 and "is_mean" not in ln
              for ln in evals), f"eval lines {evals}")
@@ -2526,6 +2546,229 @@ def special_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
     return {"launches": launches, "ours_ed": ours, "layout2im": l2i}
 
 
+# the export phase: the serving artifact at the CLI's defaults (context_app_v2: ch=64, 128 px,
+# 184 classes, o=8), f32 and bf16, b=8 (checked) and b=128 (timed)
+EXPORT_B, EXPORT_RATE_B = 8, 128
+# the artifacts the phase writes: (b, precision); b=128 in the serving precision only
+EXPORTS = ((EXPORT_B, "f32"), (EXPORT_B, "bf16"), (EXPORT_RATE_B, "bf16"))
+EXPORT_BF16_BAR = 1e-2  # the kernel phases' bf16 bar, here on images in [-1, 1]
+PLAIN_EINSUM = "bohw,boc->bchw"  # isla_modulate_plain's contraction
+
+
+def _artifact_graph(ep) -> tuple[int, int]:
+    """(ISLA operator nodes, plain-twin einsums) in an exported program."""
+    import torch
+
+    nodes = list(ep.graph.nodes)
+    isla = sum(n.target == torch.ops.layout2img_tpu_torch.isla_norm.default for n in nodes)
+    plain = sum(n.target == torch.ops.aten.einsum.default and n.args[0] == PLAIN_EINSUM
+                for n in nodes)
+    return isla, plain
+
+
+def _export_run_subprocess(path: str) -> str:
+    """``cli.export --run`` in a fresh interpreter; returns its line, and
+    fails if that process imported a module of ``models/``."""
+    code = ("import json, sys\nfrom layout2img_tpu_torch.cli.export import main\n"
+            f"main(['--run', {path!r}])\n"
+            "print(json.dumps(sorted(m for m in sys.modules "
+            "if m.startswith('layout2img_tpu_torch.models'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    need(out.returncode == 0, f"cli.export --run exited {out.returncode}: {out.stderr[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    need(json.loads(lines[-1]) == [], f"cli.export --run imported model code: {lines[-1]}")
+    return lines[-2]
+
+
+def export_phase(seed: int, tmp_dir: str, dev, card: str) -> int:
+    """The serving artifact through ``cli.export`` at full width; returns the
+    ISLA launches of the checked artifact calls (2 seeds x f32 and bf16 at
+    b=8)."""
+    import shutil
+
+    import torch
+
+    from layout2img_tpu_torch.cli import export as export_cli
+    from layout2img_tpu_torch.cli.sample import checkpoint_generator_dict, load_generator
+    from layout2img_tpu_torch.ops import interp
+    from layout2img_tpu_torch.sample import latents_from_seed, make_sample_fn
+    from layout2img_tpu_torch.train.checkpoint import CheckpointManager
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.utils.casting import cast_floating
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp_dir, "export")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # a checkpoint with an EMA (moved off the raw weights), written through the train state
+    gen = init_generator(seed, COCO_CLASSES, device=dev)
+    state = create_train_state(gen, init_discriminator(seed, COCO_CLASSES, device=dev),
+                               TrainConfig(ema_decay=0.999))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for v in state.ema.values():
+        v.add_(torch.randn(v.shape, generator=g, device=dev) * 0.1 * v.abs().mean())
+    ckpt = os.path.join(root, "ckpt")
+    CheckpointManager(ckpt).save(state)
+    del state, gen
+    ema = load_generator(checkpoint_generator_dict(ckpt), dev).eval()
+    ema_bf16 = cast_floating(load_generator(checkpoint_generator_dict(ckpt), dev).eval(),
+                             torch.bfloat16)
+    layouts = {b: synthetic_layouts_np(seed, b, 128) for b in (EXPORT_B, EXPORT_RATE_B)}
+    args = {b: (lay["boxes"].to(dev), lay["labels"].to(dev)) for b, lay in layouts.items()}
+
+    def eager(gen, b, s, dtype):
+        z, z_im = latents_from_seed(torch.tensor([s], device=dev), b, COCO_OBJ, 128, 2.0, dtype)
+        with torch.no_grad():
+            return gen(z, *args[b], z_im)
+
+    before = eager(ema, EXPORT_B, 0, torch.float32)
+    paths = {}
+    for b, dname in EXPORTS:
+        path = os.path.join(root, f"G_b{b}_{dname}.pt2")
+        interp._DEVICE_TABLES.clear()  # the export builds its resize tables under tracing
+        t0 = time.perf_counter()
+        export_cli.main(["--model", "context_app_v2", "--ckpt_dir", ckpt, "--out", path,
+                         "--batch_size", str(b), *(["--bf16"] if dname == "bf16" else [])])
+        phase("export", f"cli.export {dname} b={b}: {time.perf_counter() - t0:.1f}s, "
+              f"{os.path.getsize(path) / 1e6:.1f} MB")
+        paths[b, dname] = path
+    after = eager(ema, EXPORT_B, 0, torch.float32)
+    need(type(after) is torch.Tensor and torch.equal(after, before),
+         f"after the exports an eager forward gives a {type(after).__name__} that differs from "
+         f"the one before by {(after.float() - before.float()).abs().max().item()}")
+    phase("export", f"after {len(EXPORTS)} exports (resize tables rebuilt under tracing) an eager forward "
+          "returns a real tensor equal bit for bit to the one before")
+    with open(paths[EXPORT_B, "f32"] + ".json") as f:
+        meta = json.load(f)
+    need(meta == {"batch_size": EXPORT_B, "num_objects": COCO_OBJ, "num_classes": COCO_CLASSES,
+                  "img_size": 128, "model": "context_app_v2"}, f"sidecar {meta}")
+    t0 = time.perf_counter()
+    line = _export_run_subprocess(paths[EXPORT_B, "f32"])
+    need(line.startswith(f"ran exported artifact: ({EXPORT_B}, 3, 128, 128) range"), line)
+    phase("export", f"--run f32 in a fresh process (no module of models/ imported), "
+          f"{time.perf_counter() - t0:.1f}s: {line}")
+
+    t0 = time.perf_counter()
+    programs = {key: torch.export.load(p) for key, p in paths.items()}
+    phase("export", f"torch.export.load of {len(programs)} artifacts: "
+          f"{time.perf_counter() - t0:.1f}s")
+    for key, ep in programs.items():
+        isla, plain = _artifact_graph(ep)
+        need(isla == 10 and plain == 0, f"artifact {key}: {isla} ISLA operator nodes and {plain} "
+             f"plain-twin einsums, not 10 and 0")
+    modules = {key: ep.module() for key, ep in programs.items()}
+    phase("export", "each artifact holds 10 layout2img_tpu_torch::isla_norm nodes and no "
+          f"'{PLAIN_EINSUM}' einsum")
+
+    # the main path: 4 artifact calls, counts set to 0 just before and read just after
+    _reset_isla_counts()
+    with torch.no_grad():
+        outs = {(dname, s): modules[EXPORT_B, dname](*args[EXPORT_B], torch.tensor([s], device=dev))
+                for dname in ("f32", "bf16") for s in (0, 1)}
+    sync_all()
+    launches = _isla_counts()
+    need(launches == (40, 0, 0), f"4 artifact calls launched the ISLA kernels {launches}, "
+         "not (40, 0, 0)")
+    for dname, dtype, gen, bar in (("f32", torch.float32, ema, 1e-5),
+                                   ("bf16", torch.bfloat16, ema_bf16, EXPORT_BF16_BAR)):
+        for s in (0, 1):
+            got, want = outs[dname, s], eager(gen, EXPORT_B, s, dtype)
+            err = (got.float() - want.float()).abs().max().item()
+            need(got.shape == (EXPORT_B, 3, 128, 128) and got.dtype == dtype
+                 and torch.isfinite(got.float()).all().item() and err <= bar,
+                 f"artifact {dname} seed {s}: {tuple(got.shape)} {got.dtype}, off the eager EMA "
+                 f"generator by {err} > {bar}")
+            phase("export", f"artifact {dname} seed {s} vs the eager EMA generator on "
+                  f"latents_from_seed: max_abs_diff={err:.3e} (bar {bar:g})")
+        diff = (outs[dname, 0].float() - outs[dname, 1].float()).abs().max().item()
+        need(diff > 1e-2, f"artifact {dname}: seeds 0 and 1 give the same images ({diff})")
+    raw = load_generator(CheckpointManager(ckpt).read()["generator"], dev).eval()
+    served = (outs["f32", 0] - eager(raw, EXPORT_B, 0, torch.float32)).abs().max().item()
+    need(served > 1e-3, f"the artifact serves the raw weights, not the EMA ({served})")
+    phase("export", f"main path: 4 artifact calls launched the ISLA forward kernel {launches[0]} "
+          f"times (10 a call); the raw weights' images differ by {served:.3e} (EMA served)")
+
+    # where one f32 b=8 call spends its time: the artifact against the eager sampler
+    seed_t = torch.tensor([0], device=dev)
+    sample = make_sample_fn(ema)
+    rng = torch.Generator(device=dev).manual_seed(seed)
+    calls = {"artifact": lambda *_: modules[EXPORT_B, "f32"](*args[EXPORT_B], seed_t),
+             "eager sampler": lambda *_: sample(*args[EXPORT_B], rng)}
+    for tag, call in calls.items():
+        with torch.no_grad():
+            dev_ms, wall_ms, kernels, rows = _profile_steps(call, None, None, n=3)
+        if not rows:
+            phase("export", f"profile {tag}: the profiler saw no device time; not measured")
+            continue
+        isla_n = sum(n for k, _, n in rows if "isla" in k)
+        need(isla_n == 10, f"the profile shows {isla_n} ISLA kernels per {tag} call, not 10")
+        phase("export", f"profile f32 b={EXPORT_B} {tag}: {dev_ms:.3f} ms of device time in "
+              f"{wall_ms:.3f} ms traced, {kernels} kernels per call, the ISLA kernel x{isla_n}")
+
+    for b, dname in EXPORTS:
+        reps = 10 if b == EXPORT_B else 5
+        dtype, gen = (torch.float32, ema) if dname == "f32" else (torch.bfloat16, ema_bf16)
+        mod = modules[b, dname]
+        sample = make_sample_fn(gen, dtype=dtype)
+        with torch.no_grad():
+            a_ms, a_lo, a_hi = time_ms(lambda: mod(*args[b], seed_t), reps)
+        e_ms, e_lo, e_hi = time_ms(lambda: sample(*args[b], rng), reps)
+        phase("export", f"{dname} b={b}: artifact {a_ms:.3f} ms/batch [{a_lo:.3f}, {a_hi:.3f}] "
+              f"{1e3 * b / a_ms:.1f} img/s; eager sampler {e_ms:.3f} ms/batch [{e_lo:.3f}, "
+              f"{e_hi:.3f}] {1e3 * b / e_ms:.1f} img/s; over {reps} batches on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    phase("export", f"{time.perf_counter() - t_phase:.1f}s")
+    return launches[0]
+
+
+def conditioning_phase(tmp_dir: str, reps: int) -> tuple[tuple[int, int, int], tuple[float, ...]]:
+    """The conditioning check for the flagship at the script's defaults (800
+    steps); its own gate decides. Then the ISLA calls of one of its steps
+    against the plain versions. Returns the ISLA launches of the run and the
+    calls' summed (forward ms, plain, bound, backward ms, plain, bound)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from layout2img_tpu_torch.models.generators import make_generator
+    from layout2img_tpu_torch.scripts import train_conditioning_check as check
+
+    a = check.parse_args(["--image_out", os.path.join(tmp_dir, "conditioning.png")])
+    # two norms a block: 8 at 64 px
+    calls = make_generator(a.preset, a.num_classes, device="meta", ch=a.ch, image_size=a.img_size,
+                           num_mask_classes=a.num_classes).isla_calls
+    _reset_isla_counts()
+    t0 = time.perf_counter()
+    result = check.run_check(a)
+    sync_all()
+    launches = _isla_counts()
+    wall = time.perf_counter() - t0
+    per_step = tuple(result["isla_launches_per_step"])
+    need(per_step == (calls,) * 3, f"ISLA launches per step {per_step}, not {(calls,) * 3}")
+    passed = check.learned(result, a.min_score)
+    # the ISLA calls of one step of this path (b=32, o=4, c 24-384, bf16) against the plain
+    # versions, outside the counted run
+    dev = torch.device("cuda")
+    _, step, batch_fn, *_ = check.build_family(a, dev)
+    built = SimpleNamespace(step=step, batch=check.to_device(batch_fn(np.random.default_rng(0)), dev),
+                            rng=torch.Generator(device=dev).manual_seed(1))
+    sums = check_captured("conditioning step", capture_isla_calls(built), want_o=a.objects,
+                          reps=reps, want_calls=calls, name="conditioning")
+    phase("conditioning", f"{a.preset} b={a.batch_size} ch={a.ch} {a.img_size}px "
+          f"{result['steps']} steps: score {result['score_before']:+.3f} -> "
+          f"{result['score_after']:+.3f} (gate: above {a.min_score} and 0.3 above the start: "
+          f"{'passed' if passed else 'FAILED'}); trajectory "
+          + ", ".join(f"{t['step']}: {t['score']:+.3f}" for t in result["trajectory"])
+          + f"; {result['train_seconds']:.1f}s training, {wall:.1f}s in all; ISLA per step "
+          f"forward {per_step[0]:g}, backward {per_step[1]:g} + {per_step[2]:g} finishing (bf16); "
+          f"the run's launches {launches}")
+    need(passed, "the conditioning check's gate failed: the port did not learn")
+    return launches, sums
+
+
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
     """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
     import numpy as np
@@ -2543,8 +2786,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated phases to run, of {','.join(PHASES)} (default: all)")
-    ap.add_argument("--reps", type=int, default=100,
-                    help="timed launches per kernel and shape in the kernel phases (default 100)")
+    ap.add_argument("--reps", type=int, default=50,
+                    help="timed launches per kernel and shape in the kernel phases (default 50)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = sorted(set(phases) - set(PHASES))
@@ -2570,6 +2813,15 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     rows = {}
+    spent: dict[str, float] = {}  # seconds per phase, printed at the end
+    current = [None, t_start]
+
+    def begin(name: str | None) -> None:
+        now = time.perf_counter()
+        if current[0] is not None:
+            spent[current[0]] = now - current[1]
+        current[:] = [name, now]
+
     try:
         card = gpu_line()
         kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -2577,14 +2829,18 @@ def main(argv=None) -> int:
               f"{kind} x{count}")
         dev = torch.device("cuda")
         if "build" in phases:
+            begin("build")
             t0 = time.perf_counter()
             build_phase()
             phase("build", f"{time.perf_counter() - t0:.1f}s")
         if "kernel" in phases:
+            begin("kernel")
             rows["isla_norm"] = kernel_phase(args.reps)
         if "kernel_bwd" in phases:
+            begin("kernel_bwd")
             rows["isla_norm_bwd"], rows["isla_norm_bwd_finish"] = kernel_bwd_phase(args.reps)
         if "bwd_vg" in phases:
+            begin("bwd_vg")
             vg = bwd_vg_phase(args.reps)
             if "isla_norm_bwd" in rows:
                 rows["isla_norm_bwd"].update(
@@ -2592,18 +2848,23 @@ def main(argv=None) -> int:
                     ms_vg_bf16=vg["bfloat16"][0], main_kernel_ms_vg_bf16=vg["bfloat16"][1])
         fwd, bwd, fin = (rows.get(k, {}) for k in ("isla_norm", "isla_norm_bwd", "isla_norm_bwd_finish"))
         if "slice" in phases:
+            begin("slice")
             fwd["launches"], gens = slice_phase(args.seed, tmp_dir, dev)
         if "train" in phases:
+            begin("train")
             (fwd["launches_train"], bwd["launches"], fin["launches"]), paths = train_phase(
                 args.seed, tmp_dir, dev)
             bwd["launches_train"], fin["launches_train"] = bwd["launches"], fin["launches"]
         if "rate" in phases:
+            begin("rate")
             fwd["ms_in_forward_traced"] = rate_phase(args.seed, card, gens)
             del gens
         if "train_rate" in phases:
+            begin("train_rate")
             (fwd["ms_in_step_traced"], bwd["ms_in_step_traced"],
              fin["ms_in_step_traced"]) = train_rate_phase(args.seed, card, paths)
         if "train_mixed" in phases:
+            begin("train_mixed")
             mixed = train_mixed_phase(args.seed, tmp_dir, dev, card,
                                       paths if "train" in phases else None, max(5, args.reps // 5))
             (fwd["launches_mixed"], bwd["launches_mixed"], fin["launches_mixed"]) = mixed["launches"]
@@ -2614,6 +2875,7 @@ def main(argv=None) -> int:
                 bwd.update({f"ms_bf16_{suffix}": b_ms, f"plain_ms_bf16_{suffix}": pb_ms,
                             f"bound_ms_bf16_{suffix}": b_bound})
         if "presets" in phases:
+            begin("presets")
             pre = presets_phase(args.seed, tmp_dir, dev, card, max(5, args.reps // 20))
             (fwd["launches_presets"], bwd["launches_presets"],
              fin["launches_presets"]) = pre["launches"]
@@ -2627,14 +2889,17 @@ def main(argv=None) -> int:
                     bwd[f"plain_ms_{dname}_{exp_name}"] = pb_ms
                     bwd[f"bound_ms_{dname}_{exp_name}"] = b_bound
         if "data" in phases:
+            begin("data")
             (fwd["launches_data"], bwd["launches_data"],
              fin["launches_data"]) = data_phase(args.seed, tmp_dir, dev, card)
         if "eval" in phases:
+            begin("eval")
             counts = eval_phase(args.seed, tmp_dir, dev, card)
             for row, n in zip((fwd, bwd, fin), counts):
                 row["launches_eval"] = n
                 row["launches"] = row.get("launches", 0) + n
         if "special" in phases:
+            begin("special")
             special = special_phase(args.seed, tmp_dir, dev, card, max(5, args.reps // 20))
             for row, n in zip((fwd, bwd, fin), special["launches"]):
                 row["launches_special"] = n
@@ -2642,10 +2907,29 @@ def main(argv=None) -> int:
             f_ms, pf_ms, f_bound, b_ms, pb_ms, b_bound = special["ours_ed"]["sums"]
             fwd.update(ms_f32_ours_ed=f_ms, plain_ms_f32_ours_ed=pf_ms, bound_ms_f32_ours_ed=f_bound)
             bwd.update(ms_f32_ours_ed=b_ms, plain_ms_f32_ours_ed=pb_ms, bound_ms_f32_ours_ed=b_bound)
+        if "export" in phases:
+            begin("export")
+            fwd["launches_export"] = export_phase(args.seed, tmp_dir, dev, card)
+            for row in (bwd, fin):
+                row["launches_export"] = 0
+            fwd["launches"] = fwd.get("launches", 0) + fwd["launches_export"]
+        if "conditioning" in phases:
+            begin("conditioning")
+            launches, sums = conditioning_phase(tmp_dir, max(5, args.reps // 20))
+            for row, n in zip((fwd, bwd, fin), launches):
+                row["launches_conditioning"] = n
+                row["launches"] = row.get("launches", 0) + n
+            f_ms, pf_ms, f_bound, b_ms, pb_ms, b_bound = sums
+            fwd.update(ms_bf16_conditioning=f_ms, plain_ms_bf16_conditioning=pf_ms,
+                       bound_ms_bf16_conditioning=f_bound)
+            bwd.update(ms_bf16_conditioning=b_ms, plain_ms_bf16_conditioning=pb_ms,
+                       bound_ms_bf16_conditioning=b_bound)
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1
-    phase("done", f"{time.perf_counter() - t_start:.1f}s")
+    begin(None)
+    phase("done", f"{time.perf_counter() - t_start:.1f}s; by phase: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in spent.items()))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -22,9 +22,11 @@ no shuffle; the last batch edge-padded to ``--batch_size`` and its padding
 dropped), up to ``--max_layouts``; ``--dataset synthetic`` (default) draws
 four batches of COCO-shaped layouts over the generator's classes.
 
-Runs on the GPU; ``--device cpu`` asks for the CPU. ``--obj_budget`` is
-refused where compaction is not exact (the v1 mask trunk, legacy
-attention).
+The generator's sizes are read off its weights: ``--ch`` and ``--img_size``
+(the JAX CLI's flags) need not be given, and a given one that disagrees with
+the weights raises, naming both values. Runs on the GPU; ``--device cpu``
+asks for the CPU. ``--obj_budget`` is refused where compaction is not
+exact (the v1 mask trunk, legacy attention).
 
 The special families sample from ``--ckpt_dir`` only, as in the JAX CLI
 (``layout2img_tpu/cli/sample.py:95-165``), their sizes read off the
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import re
 
 import numpy as np
 import torch
@@ -65,7 +68,12 @@ def parse_args(argv=None):
     p.add_argument("--dataset", default="synthetic", choices=["coco", "vg", "synthetic"])
     p.add_argument("--sample_path", default="./samples")
     p.add_argument("--num_img", type=int, default=5)
-    p.add_argument("--img_size", type=int, default=0, help="0 = the model preset's size")
+    p.add_argument("--img_size", type=int, default=0,
+                   help="0 = the weights' size; another size than theirs raises")
+    p.add_argument("--ch", type=int, default=None,
+                   help="the weights' channel width (the JAX CLI's flag; its default there is "
+                        "64); read off the weights when not given, and a given width that "
+                        "disagrees with them raises")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--max_layouts", type=int, default=0, help="stop after this many (0 = all)")
     p.add_argument("--truncation", type=float, default=2.0)
@@ -86,17 +94,39 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+_BLOCKS_TO_SIZE = {4: 64, 5: 128, 6: 256}  # the upsampling ResBlocks of each image size
+
+
+def generator_sizes(sd: dict[str, torch.Tensor]) -> dict[str, int]:
+    """The channel width and image size of the LostGAN generator that the
+    reference-format dict ``sd`` describes."""
+    blocks = {k.split(".")[0] for k in sd if re.fullmatch(r"res\d+", k.split(".")[0])}
+    return {"ch": sd["fc.weight_orig"].shape[0] // (4 * 4 * 16),
+            "image_size": _BLOCKS_TO_SIZE[len(blocks)]}
+
+
+def check_sizes(sizes: dict[str, int], ch: int | None = None, image_size: int = 0) -> None:
+    """Raise where a given ``--ch`` (None: not given) or ``--img_size`` (0:
+    not given) disagrees with the weights' ``sizes``."""
+    for flag, given, key in (("--ch", ch, "ch"), ("--img_size", image_size or None, "image_size")):
+        if given is not None and given != sizes[key]:
+            raise SystemExit(f"{flag} {given} disagrees with the weights, whose {key} is "
+                             f"{sizes[key]}")
+
+
 def load_generator(weights, device: torch.device, model: str = "context_app_v2",
-                   legacy_attention: bool = False, image_size: int = 0) -> LostGANGenerator:
-    """Build the generator of experiment ``model`` (at ``image_size``, 0: its
-    own) that a reference-format dict (or its ``.pth`` path) describes and
-    load it with ``strict=True``. Sizes are read off the dict."""
+                   legacy_attention: bool = False, image_size: int = 0,
+                   ch: int | None = None) -> LostGANGenerator:
+    """Build the generator of experiment ``model`` that a reference-format
+    dict (or its ``.pth`` path) describes and load it with ``strict=True``.
+    Sizes are read off the dict; a given ``image_size`` (0: none) or ``ch``
+    (None: none) that disagrees with them raises."""
     from layout2img_tpu_torch.utils.reference import reference_state_dict
 
     exp = experiment(model)
     sd = reference_state_dict(weights)
-    sizes = dict(ch=sd["fc.weight_orig"].shape[0] // (4 * 4 * 16),
-                 image_size=image_size or exp.image_size)
+    sizes = generator_sizes(sd)
+    check_sizes(sizes, ch, image_size)
     if "alpha1" in sd:  # stage masks pick their masks by label
         sizes["num_mask_classes"] = sd["alpha1"].shape[1]
     gen = make_generator(exp.gen_preset, sd["label_embedding.weight"].shape[0], device=device,
@@ -160,8 +190,9 @@ def special_sampler(args, device: torch.device, dtype: torch.dtype):
         from layout2img_tpu_torch.train.step_bgfg import make_bgfg_sample_fn
 
         num_bg = sd["background_g.label_embedding.weight"].shape[0]
-        gen = BgFgGenerator(sd["foreground_g.label_embedding.weight"].shape[0], num_bg,
-                            ch=sd["final.2.weight_orig"].shape[1])
+        ch = sd["final.2.weight_orig"].shape[1]
+        check_sizes({"ch": ch}, args.ch)
+        gen = BgFgGenerator(sd["foreground_g.label_embedding.weight"].shape[0], num_bg, ch=ch)
         gen.load_state_dict(sd, strict=True)
         cast_floating(gen.to(device).eval(), dtype)
         draw = make_bgfg_sample_fn(gen, truncation=args.truncation, dtype=dtype)
@@ -190,9 +221,9 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     weights = (checkpoint_generator_dict(args.ckpt_dir) if args.ckpt_dir
                else args.torch_ckpt or args.weights)
-    args.img_size = args.img_size or experiment(args.model).image_size
     gen = load_generator(weights, device, args.model, legacy_attention=bool(args.torch_ckpt),
-                         image_size=args.img_size)
+                         image_size=args.img_size, ch=args.ch)
+    args.img_size = gen.image_size
     why = obj_budget_error(gen) if args.obj_budget else None
     if why is not None:
         raise SystemExit(f"--obj_budget is not exact for this model: {why}")

@@ -47,15 +47,35 @@ def _resize_matrix_np(out_size: int, in_size: int, align_corners: bool) -> np.nd
     return m
 
 
-# The two caches below hold device tensors for the life of the process, one
-# per size pair. They are built outside inference mode: an inference tensor
-# kept in a cache would break any later call that autograd records.
-@functools.cache
+# Device copies of the constant tables above and below, one per (table,
+# dtype, device), so that an eager call on the card makes no host-to-device
+# copy. Only real tensors are kept. Under a tracing mode (``torch.export``,
+# ``torch.compile``, ``make_fx``) the tensor built is a fake or functional
+# stand-in that belongs to that trace: kept, it would be handed to every
+# later eager call (ROADMAP §3, trap 9). Tables are built outside inference
+# mode: an inference tensor kept here would break any later call that
+# autograd records.
+_DEVICE_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def device_table(key: tuple, array: np.ndarray, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """``array`` (a cached numpy table named by ``key``) as a tensor of
+    ``dtype`` on ``device``, kept per device when it is a real tensor."""
+    full_key = (key, dtype, torch.device(device))
+    t = _DEVICE_TABLES.get(full_key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.from_numpy(array).to(device, dtype)
+        if type(t) is torch.Tensor and not torch.compiler.is_compiling():
+            _DEVICE_TABLES[full_key] = t
+    return t
+
+
 def _resize_matrix(out_size: int, in_size: int, align_corners: bool, dtype: torch.dtype,
                    device: torch.device) -> torch.Tensor:
-    with torch.inference_mode(False):
-        m = _resize_matrix_np(out_size, in_size, align_corners)
-        return torch.from_numpy(m).to(device, dtype)
+    key = ("resize", out_size, in_size, align_corners)
+    return device_table(key, _resize_matrix_np(*key[1:]), dtype, device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *, align_corners: bool = False) -> torch.Tensor:
@@ -69,11 +89,14 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *, align_corners: 
 
 
 @functools.cache
-def _nearest_index(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+def _nearest_index_np(out_size: int, in_size: int) -> np.ndarray:
     """torch 'nearest' source index: ``floor(dst * in / out)``."""
-    idx = [min(i * in_size // out_size, in_size - 1) for i in range(out_size)]
-    with torch.inference_mode(False):
-        return torch.tensor(idx, dtype=torch.long, device=device)
+    return np.minimum(np.arange(out_size) * in_size // out_size, in_size - 1).astype(np.int64)
+
+
+def _nearest_index(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+    key = ("nearest", out_size, in_size)
+    return device_table(key, _nearest_index_np(out_size, in_size), torch.long, device)
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

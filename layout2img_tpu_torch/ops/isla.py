@@ -16,9 +16,9 @@ package: ``SyncBatchNorm`` and ``SpatialAdaptiveNorm`` of ``nn/norms.py``,
 with its ``custom_vjp`` backward (removed from that tree in commit d0260d0).
 
 On CUDA tensors ``isla_norm`` launches ``csrc/isla_norm.cu`` and, when autograd
-needs a gradient, ``csrc/isla_norm_bwd.cu`` through ``isla_norm_backward``. On
-CPU tensors it runs ``isla_norm_plain``, which autograd differentiates: that is
-the plain version of both kernels.
+needs a gradient, ``csrc/isla_norm_bwd.cu``, both as ``torch.library``
+operators that a trace keeps. On CPU tensors it runs ``isla_norm_plain``,
+which autograd differentiates: that is the plain version of both kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from layout2img_tpu_torch.ops import _build
-from layout2img_tpu_torch.ops.interp import resize_bilinear
+from layout2img_tpu_torch.ops.interp import device_table, resize_bilinear
 
 EPS = 1e-6
 MAX_OBJECTS = 64  # the kernel tracks live objects in one 64-bit word
@@ -288,24 +288,71 @@ def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Ten
     return out
 
 
-class _IslaNorm(torch.autograd.Function):
-    """The fused norm under autograd on the card: the forward kernel, then
-    the backward's two kernels for the gradients of x, mean, var, mask_src,
-    gamma and beta. Nothing of the forward is saved but its inputs."""
+# The kernels as operators of PyTorch's dispatcher (``torch.library``), so that a
+# trace keeps them: ``torch.export`` records one ``isla_norm`` node per call on
+# CUDA tensors, and a loaded program launches the kernel through the same
+# implementation (counted as an eager call is). Each has a CUDA implementation
+# only and a fake one (shapes and dtypes) for tracing. CPU tensors never reach
+# them: ``isla_norm`` and ``isla_norm_backward`` take the plain versions there,
+# so a trace on the CPU decomposes into plain ops.
+OPS_NAMESPACE = "layout2img_tpu_torch"
 
-    @staticmethod
-    def forward(ctx, x, mean, var, mask_src, gamma, beta, eps, relu):
-        ctx.save_for_backward(x, mean, var, mask_src, gamma, beta)
-        ctx.eps, ctx.relu = eps, relu
-        return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
 
-    @staticmethod
-    def backward(ctx, grad):
-        x, mean, var, mask_src, gamma, beta = ctx.saved_tensors
-        grads = isla_norm_backward(x, mean, var, ctx.eps, mask_src, gamma, beta,
-                                   grad.contiguous(), ctx.relu)
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
-                None, None)
+@torch.library.custom_op(f"{OPS_NAMESPACE}::isla_norm", mutates_args=(), device_types="cuda")
+def _isla_norm_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                  mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  relu: bool) -> torch.Tensor:
+    return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
+
+
+@_isla_norm_op.register_fake
+def _(x, mean, var, eps, mask_src, gamma, beta, relu):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op(f"{OPS_NAMESPACE}::isla_norm_backward", mutates_args=(),
+                         device_types="cuda")
+def _isla_norm_backward_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
+                           mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                           grad: torch.Tensor, relu: bool
+                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    b, c, h, w = x.shape
+    o = mask_src.shape[1]
+    cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
+    _check_int32(part_stats=b * cfg.n_spans * 2 * c, part_gb=b * cfg.n_spans * 2 * o * c,
+                 part_dm=cfg.n_groups * b * o * h * w)
+    dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg)
+    return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma))
+
+
+@_isla_norm_backward_op.register_fake
+def _(x, mean, var, eps, mask_src, gamma, beta, grad, relu):
+    stat = x.new_empty(x.shape[1], dtype=torch.float32)
+    return (torch.empty_like(x), stat, torch.empty_like(stat), torch.empty_like(mask_src),
+            torch.empty_like(gamma), torch.empty_like(beta))
+
+
+def _save_inputs(ctx, inputs, output) -> None:
+    """Nothing of the forward is saved but its inputs."""
+    x, mean, var, eps, mask_src, gamma, beta, relu = inputs
+    ctx.save_for_backward(x, mean, var, mask_src, gamma, beta)
+    ctx.eps, ctx.relu = eps, relu
+
+
+def _isla_norm_grads(ctx, grad):
+    """The gradients of x, mean, var, mask_src, gamma and beta by the
+    backward's two kernels (mean and var are inputs: autograd carries their
+    gradients back into x where they are batch statistics); None for eps,
+    relu and every input that needs none."""
+    x, mean, var, mask_src, gamma, beta = ctx.saved_tensors
+    dx, dmean, dvar, dmask, dgamma, dbeta = _isla_norm_backward_op(
+        x, mean, var, ctx.eps, mask_src, gamma, beta, grad.contiguous(), ctx.relu)
+    grads = (dx, dmean, dvar, None, dmask, dgamma, dbeta, None)
+    return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
+
+
+_isla_norm_op.register_autograd(_isla_norm_grads, setup_context=_save_inputs)
 
 
 def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
@@ -316,20 +363,18 @@ def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
     gamma, beta (b, o, c). x, mask_src, gamma and beta share one dtype (f32 or
     bf16).
 
-    CUDA tensors launch the forward kernel (counted in ``isla_norm.launches``)
-    and, under autograd, the backward's two kernels (``isla_norm_backward``); the
-    kernels want contiguous inputs, f32 statistics and at most 64 objects, and
-    raise otherwise. CPU tensors run ``isla_norm_plain``."""
+    CUDA tensors go through the ``layout2img_tpu_torch::isla_norm`` operator:
+    the forward kernel (counted in ``isla_norm.launches``) and, under
+    autograd, the backward's two kernels (``isla_norm_backward``); the
+    kernels want contiguous inputs, f32 statistics and at most 64 objects,
+    and raise otherwise. CPU tensors run ``isla_norm_plain``."""
     _check(x, mean, var, mask_src, gamma, beta)
     if x.device.type == "cpu":
         return isla_norm_plain(x, mean, var, eps, mask_src, gamma, beta, relu)
     if x.device.type != "cuda":
         raise ValueError(f"isla_norm has no kernel for device {x.device}")
-    tensors = (x, mean, var, mask_src, gamma, beta)
-    _check_cuda(tensors, mean, var, mask_src.shape[1])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _IslaNorm.apply(x, mean, var, mask_src, gamma, beta, eps, relu)
-    return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
+    _check_cuda((x, mean, var, mask_src, gamma, beta), mean, var, mask_src.shape[1])
+    return _isla_norm_op(x, mean, var, float(eps), mask_src, gamma, beta, bool(relu))
 
 
 isla_norm.launches = 0
@@ -345,7 +390,7 @@ def _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu=False):
 
 
 @functools.cache
-def _transposed_taps(out_size: int, in_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _transposed_taps_np(out_size: int, in_size: int) -> tuple[np.ndarray, np.ndarray]:
     """The transposed 2-tap resize as a gather: for each source index s, the
     destination indices whose taps reach it, in ascending order, and the
     weight each reads s with, padded to one width with index 0 and weight 0.
@@ -365,7 +410,16 @@ def _transposed_taps(out_size: int, in_size: int) -> tuple[torch.Tensor, torch.T
         idx[s, :len(dst)] = dst
         wgt[s, :len(dst)] = (np.where(i0[dst] == s, np.float32(1.0) - w1[dst], np.float32(0.0))
                              + np.where(i1[dst] == s, w1[dst], np.float32(0.0)))
-    return torch.from_numpy(idx), torch.from_numpy(wgt)
+    return idx, wgt
+
+
+def _transposed_taps(out_size: int, in_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_transposed_taps_np`` on ``device``, kept there as real tensors only
+    (``ops/interp.py::device_table``)."""
+    idx, wgt = _transposed_taps_np(out_size, in_size)
+    key = ("transposed_taps", out_size, in_size)
+    return (device_table(key + ("idx",), idx, torch.long, device),
+            device_table(key + ("wgt",), wgt, torch.float32, device))
 
 
 def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int]) -> torch.Tensor:
@@ -377,7 +431,7 @@ def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int]) -
     h, w = dm.shape[-2:]
     out = dm.float()
     for dim, (n_out, n_in) in ((-2, (h, src_hw[0])), (-1, (w, src_hw[1]))):
-        idx, wgt = (t.to(dm.device) for t in _transposed_taps(n_out, n_in))
+        idx, wgt = _transposed_taps(n_out, n_in, dm.device)
         shape = [1] * out.ndim
         shape[dim] = n_in
         acc = torch.zeros((*out.shape[:dim % out.ndim], n_in, *out.shape[dim % out.ndim + 1:]),
@@ -457,8 +511,9 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
     is the part through y alone; autograd adds the parts through the
     statistics. dmean and dvar are f32, the rest in their input's dtype.
 
-    CUDA tensors take two launches of ``csrc/isla_norm_bwd.cu`` and nothing
-    else on the card: the main kernel (dx_direct and three partial-sum
+    CUDA tensors go through the ``layout2img_tpu_torch::isla_norm_backward``
+    operator: two launches of ``csrc/isla_norm_bwd.cu`` and nothing else on
+    the card: the main kernel (dx_direct and three partial-sum
     buffers; counted in ``isla_norm_backward.launches``) and the finishing
     kernel (the fixed-order sums of those buffers and the transposed resize;
     counted in ``isla_norm_backward.finish_launches``). CPU tensors run
@@ -472,13 +527,8 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
     if x.device.type != "cuda":
         raise ValueError(f"isla_norm_backward has no kernel for device {x.device}")
     _check_cuda((x, mean, var, mask_src, gamma, beta, grad), mean, var, mask_src.shape[1])
-    b, c, h, w = x.shape
-    o = mask_src.shape[1]
-    cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
-    _check_int32(part_stats=b * cfg.n_spans * 2 * c, part_gb=b * cfg.n_spans * 2 * o * c,
-                 part_dm=cfg.n_groups * b * o * h * w)
-    dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg)
-    return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma))
+    return _isla_norm_backward_op(x, mean, var, float(eps), mask_src, gamma, beta, grad,
+                                  bool(relu))
 
 
 isla_norm_backward.launches = 0

@@ -22,18 +22,21 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "layout2img_tpu",
                                     "triton"))
-lazy = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "h5py", "tensorboardX"))
+lazy = sorted(m for m in sys.modules
+              if m.split(".")[0] in ("PIL", "h5py", "tensorboardX", "matplotlib"))
 print(json.dumps({"names": names, "bad": bad, "lazy": lazy}))
 """
 # modules the walk must reach: the train step's knobs, the bench, the data
 # plane, checkpoints, logging, reference weights and every CLI among them
-_MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export_torch", "cli.prepare_eval_images",
-            "cli.preprocess_vg", "cli.presets", "cli.sample", "cli.train", "cli.visualize",
+_MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export", "cli.export_torch",
+            "cli.human_study", "cli.prepare_eval_images", "cli.preprocess_vg", "cli.presets",
+            "cli.sample", "cli.train", "cli.visualize",
             "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg", "eval",
             "eval.inception", "eval.lpips", "eval.metrics", "models.convlstm", "models.layout2im",
             "nn.builders", "nn.gcn", "nn.mask_regress", "nn.remat", "train.checkpoint",
             "train.ema", "train.eval_hook", "train.step", "train.step_bgfg",
-            "train.step_layout2im", "utils.casting", "utils.logging", "utils.reference")
+            "train.step_layout2im", "utils.casting", "utils.logging", "utils.reference",
+            "scripts.train_conditioning_check")
 
 
 @pytest.fixture(scope="module")
@@ -55,9 +58,9 @@ def test_port_imports_no_jax(imported):
 
 
 def test_port_imports_pil_and_h5py_lazily(imported):
-    """The image, HDF5 and tensorboard packages load where a function uses
-    them, never at import: the card's machine need not have them to import
-    the port."""
+    """The image, HDF5, tensorboard and plotting packages load where a
+    function uses them, never at import: the card's machine need not have
+    them to import the port."""
     assert imported["lazy"] == [], imported["lazy"]
 
 
@@ -70,16 +73,19 @@ def _no_cuda(monkeypatch):
                                    "train_cli", "train_cli_knobs", "bench", "sample_cli_ckpt",
                                    "train_cli_coco", "train_cli_eval", "evaluate_cli",
                                    "bench_eval", "train_cli_ours_ed", "train_cli_layout2im",
-                                   "sample_cli_special", "init_special"])
+                                   "sample_cli_special", "init_special", "export_cli",
+                                   "export_cli_run", "conditioning_check"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
     from layout2img_tpu_torch import bench, bench_eval
     from layout2img_tpu_torch.cli import evaluate as evaluate_cli
+    from layout2img_tpu_torch.cli import export as export_cli
     from layout2img_tpu_torch.cli import sample as sample_cli
     from layout2img_tpu_torch.cli import train as train_cli
     from layout2img_tpu_torch.device import resolve_device
     from layout2img_tpu_torch.models.discriminators import make_discriminator
     from layout2img_tpu_torch.models.generators import make_generator
+    from layout2img_tpu_torch.scripts import train_conditioning_check
     from layout2img_tpu_torch.utils.convert import (init_bgfg_generator, init_discriminator,
                                                     init_generator, init_layout2im_discriminators,
                                                     init_layout2im_generator, init_vgg)
@@ -119,6 +125,10 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
             "--sample_path", str(tmp_path / "out")]),
         "init_special": lambda: (init_bgfg_generator(0, ch=4), init_layout2im_generator(0, 10),
                                  init_layout2im_discriminators(0, 10, conv_dim=4)),
+        "export_cli": lambda: export_cli.main(["--ch", "4", "--out", str(tmp_path / "out")]),
+        "export_cli_run": lambda: export_cli.main(["--run", str(tmp_path / "out")]),
+        "conditioning_check": lambda: train_conditioning_check.main([
+            "--ch", "4", "--image_out", str(tmp_path / "out")]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

@@ -327,6 +327,54 @@ def test_isla_forward_under_no_grad_launches_no_backward(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_isla_operators_pass_opcheck(cuda_device, dtype):
+    """Both kernels as ``torch.library`` operators: schema, fake
+    implementations, the autograd registration and AOT dispatch, by
+    ``torch.library.opcheck`` on the card."""
+    x, mean, var, eps, mask, gamma, beta = _inputs(0, 2, 8, 64, (8, 8), (16, 16), dtype,
+                                                   cuda_device)
+    grad = torch.randn_like(x)
+    ops = torch.ops.layout2img_tpu_torch
+    torch.library.opcheck(ops.isla_norm_backward.default,
+                          (x, mean, var, eps, mask, gamma, beta, grad, True))
+    for t in (x, var, mask, gamma):
+        t.requires_grad_(True)
+    torch.library.opcheck(ops.isla_norm.default, (x, mean, var, eps, mask, gamma, beta, True))
+
+
+@pytest.mark.cuda
+def test_export_keeps_the_isla_kernel(cuda_device):
+    """A ``torch.export`` of the generator on the card holds the forward
+    kernel's operator for each of its 10 norms and no plain-twin einsum, runs
+    the kernel 10 times a call and equals the eager generator; an eager call
+    after the export returns a real tensor equal to one before it."""
+    from layout2img_tpu_torch.ops import interp
+    from layout2img_tpu_torch.utils.convert import init_generator
+
+    gen = init_generator(0, 184, device=cuda_device, ch=8).eval()
+    g = torch.Generator().manual_seed(1)
+    args = (torch.randn(2, 8, 128, generator=g), torch.rand(2, 8, 4, generator=g) * 0.4 + 0.1,
+            torch.randint(1, 184, (2, 8), generator=g), torch.randn(2, 128, generator=g))
+    args = tuple(t.to(cuda_device) for t in args)
+    with torch.no_grad():
+        before = gen(*args)
+        interp._DEVICE_TABLES.clear()
+        ep = torch.export.export(gen, args, strict=False)
+        after = gen(*args)
+        launches = isla_norm.launches
+        got = ep.module()(*args)
+        torch.cuda.synchronize()
+    assert isla_norm.launches == launches + 10
+    assert type(after) is torch.Tensor and torch.equal(after, before)
+    nodes = list(ep.graph.nodes)
+    assert sum(n.target == torch.ops.layout2img_tpu_torch.isla_norm.default for n in nodes) == 10
+    assert not any(n.target == torch.ops.aten.einsum.default and n.args[0] == "bohw,boc->bchw"
+                   for n in nodes)
+    assert (got - before).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
 def test_build_all_builds_every_source(cuda_device):
     seconds = _build.build_all()
     assert set(seconds) == set(_build.sources())
