@@ -159,7 +159,18 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               steps and after, the wall time, 8 bf16 launches of each ISLA
               kernel per step (two norms a block, 4 blocks at 64 px); the
               script's own gate decides the phase.
-17. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+17. ddp    -- data parallelism (``parallel/mesh.py``) at the flagship's full
+              width (``context_app_v2``: ch=64, 128 px, seeded VGG19 filters).
+              ``torchrun --nproc_per_node=1`` of ``cli.train`` over NCCL, 5
+              steps at b=8 on synthetic data: its losses, parameters and Adam
+              state equal the one-process run's bit for bit (both with
+              deterministic cuDNN), and its ISLA counters read 10 forward, 10
+              backward and 10 finishing launches a step (and 10 forward for
+              the one image grid). Then 2 ranks on the one card over gloo, b=4
+              each, one f32 step from the saved train weights against the
+              one-process step at b=8 on the same images and latents, with the
+              ``train`` phase's card bars; ms per step of each run.
+18. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -168,6 +179,7 @@ default keeps about three decimal digits.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -189,7 +201,7 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets", "data", "eval", "special", "export", "conditioning")
+          "train_mixed", "presets", "data", "eval", "special", "export", "conditioning", "ddp")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -2769,6 +2781,213 @@ def conditioning_phase(tmp_dir: str, reps: int) -> tuple[tuple[int, int, int], t
     return launches, sums
 
 
+DDP_STEPS = 5
+# what torchrun starts: this file (its --ddp_child mode)
+DDP_ENTRY = os.path.abspath(__file__)
+DDP_CLI = ["--model", "context_app_v2", "--dataset", "synthetic", "--batch_size", str(B),
+           "--steps", str(DDP_STEPS), "--steps_per_epoch", str(DDP_STEPS), "--total_epoch", "1",
+           "--log_every", str(DDP_STEPS)]
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the block (runs compared bit for bit)."""
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+@contextlib.contextmanager
+def _timed_train_steps():
+    """Yields a list that collects each train step's ms (synchronised on
+    both sides) of the steps ``make_train_step`` builds inside the block."""
+    import torch
+
+    import layout2img_tpu_torch.train.step as step_mod
+
+    times, make = [], step_mod.make_train_step
+
+    def timed_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def timed(batch, rng):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch, rng)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        timed.with_latents = step.with_latents
+        return timed
+
+    step_mod.make_train_step = timed_make
+    try:
+        yield times
+    finally:
+        step_mod.make_train_step = make
+
+
+def _ddp_inputs(seed: int):
+    """The ddp phase's global batch (b=8, CPU) and latents."""
+    import numpy as np
+    import torch
+
+    batch = _train_batch(np.random.default_rng(seed + 11), B, "cpu")
+    g = torch.Generator().manual_seed(seed + 11)
+    return batch, torch.randn(B, O, 128, generator=g), torch.randn(B, 128, generator=g)
+
+
+def _ddp_rank_step(paths: dict, seed: int) -> tuple[dict, int]:
+    """One rank of the gloo run: the saved train weights, one f32 step without
+    dropout on this rank's rows of ``_ddp_inputs``, its ISLA launches, then 3
+    timed steps; the state checked bit-equal across the ranks."""
+    import torch
+
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize(backend="gloo")
+    dev = mesh.device
+    batch, z, z_im = _ddp_inputs(seed)
+    state, step = _trainer(paths, dev, seed, deterministic=True)
+    data_mesh.replicate(mesh, state)
+    mine = {k: mesh.rows(v).to(dev) for k, v in batch.items()}
+    _reset_isla_counts()
+    metrics = step.with_latents(mine, mesh.rows(z).to(dev), mesh.rows(z_im).to(dev))
+    sync_all()
+    counts = _isla_counts()
+    grads = {n: {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+             for n, net in (("G", state.generator), ("D", state.discriminator))}
+    rng, times = torch.Generator(device=dev).manual_seed(seed), []
+    for _ in range(3):
+        sync_all()
+        t0 = time.perf_counter()
+        step(mine, rng)
+        sync_all()
+        times.append(1e3 * (time.perf_counter() - t0))
+    data_mesh.check_replicated(mesh, state)
+    data_mesh.shutdown()
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "counts": counts, "ms": times,
+            "grads": grads, "world": mesh.world}, mesh.rank
+
+
+def ddp_child(argv: list[str]) -> int:
+    """A process of the ddp phase, alone or under torchrun:
+    ``cli OUT ARGS...`` runs ``cli.train`` on ARGS with deterministic cuDNN;
+    ``step OUT PATHS_JSON SEED`` runs ``_ddp_rank_step``. Rank 0 writes what
+    it found (ISLA launches, step ms, ...) to OUT with ``torch.save``."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mode, out = argv[0], argv[1]
+    if mode == "cli":
+        from layout2img_tpu_torch.cli import train as train_cli
+
+        with _deterministic_cudnn(), _timed_train_steps() as times:
+            train_cli.main(argv[2:])
+        result, rank = {"counts": _isla_counts(), "ms": times}, int(os.environ.get("RANK", 0))
+    else:
+        result, rank = _ddp_rank_step(json.loads(argv[2]), int(argv[3]))
+    if rank == 0:
+        torch.save(result, out)
+    return 0
+
+
+def _torchrun(nproc: int, args: list[str], what: str) -> None:
+    """``torchrun --standalone --nproc_per_node=nproc chip_smoke.py --ddp_child ARGS``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", DDP_ENTRY, "--ddp_child", *args]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=400)
+    need(out.returncode == 0, f"{what}: torchrun exited {out.returncode}: "
+                              f"{(out.stdout + out.stderr)[-3000:]}")
+    phase("ddp", f"{what}: torchrun --nproc_per_node={nproc} exit 0 in "
+                 f"{time.perf_counter() - t0:.1f}s")
+
+
+def _median(xs: list[float]) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def ddp_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None) -> tuple[int, int, int]:
+    """Data parallelism at full width; returns the ISLA launches of the
+    NCCL run and of rank 0's step in the gloo run."""
+    import shutil
+
+    import torch
+
+    from layout2img_tpu_torch.cli import train as train_cli
+    from layout2img_tpu_torch.parallel.mesh import flat_tensors
+
+    t_phase = time.perf_counter()
+    paths = paths or save_train_weights(seed, tmp_dir)
+    args = DDP_CLI + ["--seed", str(seed)]
+    runs = {name: os.path.join(tmp_dir, f"ddp_{name}") for name in ("one", "nccl")}
+    for d in runs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    # the one-process run, in this process, and torchrun's one rank over NCCL
+    _reset_isla_counts()
+    with _deterministic_cudnn(), _timed_train_steps() as one_ms:
+        train_cli.main(args + ["--out_path", runs["one"]])
+    sync_all()
+    one_counts = _isla_counts()
+    out = os.path.join(tmp_dir, "ddp_nccl.pt")
+    _torchrun(1, ["cli", out] + args + ["--out_path", runs["nccl"]], "cli.train, 1 rank, NCCL")
+    nccl = torch.load(out, weights_only=False)
+    want = (10 * DDP_STEPS + 10, 10 * DDP_STEPS, 10 * DDP_STEPS)  # and one grid at the log point
+    for tag, counts in (("one process", one_counts), ("NCCL rank", tuple(nccl["counts"]))):
+        need(counts == want, f"ddp {tag}: ISLA launches {counts}, not {want} for {DDP_STEPS} "
+                             "steps and one image grid")
+    sub = os.path.join("synthetic", str(train_cli.parse_args(args).img_size or 128),
+                       "context_app_v2")
+    lines = [_logged(os.path.join(runs[n], sub)) for n in ("one", "nccl")]
+    strip = [[{k: v for k, v in ln.items() if k != "time"} for ln in ls] for ls in lines]
+    need(strip[0] == strip[1] and len(strip[0]) == 1,
+         f"ddp: the NCCL rank's metrics differ from the one process's: {strip}")
+    same, total = 0, 0
+    for name in ("G.pth", "D.pth", os.path.join("ckpt", str(DDP_STEPS), "state.pt")):
+        a, b = (torch.load(os.path.join(runs[n], sub, name), map_location="cpu", weights_only=True)
+                for n in ("one", "nccl"))
+        flat_a, flat_b = flat_tensors(a), flat_tensors(b)
+        need(flat_a.keys() == flat_b.keys(), f"ddp: {name} holds other tensors")
+        bad = [k for k in flat_a if not torch.equal(flat_a[k], flat_b[k])]
+        need(not bad, f"ddp: the NCCL rank's {name} differs from the one process's at {bad[:5]}")
+        same, total = same + len(flat_a), total + len(flat_a)
+    phase("ddp", f"cli.train {DDP_STEPS} f32 steps at b={B}: one process and one NCCL rank give "
+                 f"the same losses ({' '.join(f'{k}={v:.6f}' for k, v in strip[0][0].items() if k != 'step')}) "
+                 f"and the same bits in all {total} tensors of G.pth, D.pth and the checkpoint; "
+                 f"ISLA forward x{want[0]}, backward x{want[1]}, finishing x{want[2]} in each run "
+                 "(10 of each a step, 10 forward for the grid)")
+
+    # 2 ranks on the one card over gloo, against the one-process step at b=8
+    batch, z, z_im = _ddp_inputs(seed)
+    m_one, g_one, _ = _step_grads(paths, dev, seed, batch, z, z_im)
+    out = os.path.join(tmp_dir, "ddp_gloo.pt")
+    _torchrun(2, ["step", out, json.dumps(paths), str(seed)], "2 ranks on one card, gloo")
+    gloo = torch.load(out, weights_only=False)
+    need(tuple(gloo["counts"]) == (10, 10, 10),
+         f"ddp gloo rank 0: ISLA launches {gloo['counts']} in its step, not (10, 10, 10)")
+    worst = max(abs(gloo["metrics"][k] - m_one[k]) for k in m_one)
+    need(worst <= 2e-3, f"ddp gloo: losses differ from the one-process step by {worst} > 2e-3")
+    phase("ddp", f"2 ranks x b={B // 2} (gloo, one card) against one process at b={B}: losses "
+                 f"within {worst:.3e} (bar 2e-3); every rank's state bit-equal after the steps")
+    phase("ddp", _grad_report("D", gloo["grads"]["D"], g_one["D"], B))
+    phase("ddp", _grad_report("G", gloo["grads"]["G"], g_one["G"], B))
+    ms = {"one process": _median(one_ms[1:]), "NCCL, 1 rank": _median(nccl["ms"][1:]),
+          "gloo, 2 ranks on one card (a check of correctness, not a speed)": _median(gloo["ms"])}
+    phase("ddp", f"f32 step at global b={B}, median ms: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" | {card}")
+    phase("ddp", f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(a + b for a, b in zip(nccl["counts"], gloo["counts"]))
+
+
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
     """COCO-shaped layouts (o=8, 3-8 objects) as CPU tensors."""
     import numpy as np
@@ -2782,6 +3001,9 @@ def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ddp_child"]:  # a process the ddp phase starts
+        return ddp_child(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2924,6 +3146,12 @@ def main(argv=None) -> int:
                        bound_ms_bf16_conditioning=f_bound)
             bwd.update(ms_bf16_conditioning=b_ms, plain_ms_bf16_conditioning=pb_ms,
                        bound_ms_bf16_conditioning=b_bound)
+        if "ddp" in phases:
+            begin("ddp")
+            counts = ddp_phase(args.seed, tmp_dir, dev, card, paths if "train" in phases else None)
+            for row, n in zip((fwd, bwd, fin), counts):
+                row["launches_ddp"] = n
+                row["launches"] = row.get("launches", 0) + n
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

@@ -48,10 +48,27 @@ the live generator's buffers). ``--steps N`` caps the steps this run takes
 
 Without ``--mixed_precision`` the step runs in f32 with TF32 off in cuDNN
 and matmul, as the JAX package's default ``TrainConfig`` does. The object
-budgets are checked against the dataset's valid-object counts. The flags of
-multi-GPU (``--model_parallel``, ``--mp_mode``, ``--preempt_sync_every``)
-raise ``NotImplementedError`` naming their ROADMAP item. Runs on the GPU;
-``--device cpu`` asks for the CPU.
+budgets are checked against the dataset's valid-object counts. Runs on the
+GPU; ``--device cpu`` asks for the CPU.
+
+Data parallelism (``parallel/mesh.py``; ``scripts/launch_multihost.py``):
+
+    torchrun --nproc_per_node=N -m layout2img_tpu_torch.cli.train --batch_size 16 ...
+
+Under a launcher each process is a rank on ``cuda:{LOCAL_RANK}`` over NCCL
+(``--device cpu``: gloo), ``--batch_size`` is per process, so
+the global batch is ``batch_size * WORLD_SIZE``; each rank loads its own
+shard (``HostDataLoader(process_id=rank)``; the synthetic dataset is seeded
+``seed + rank``), rank 0's initial state is broadcast, and the step is the
+one-process step at the global batch (global latents, BN statistics, masked
+means and gradients). Only rank 0 writes logs, metrics, images and
+checkpoints (after a barrier); every rank restores on ``--resume``. The NaN
+guard's verdict is taken over every rank's metrics (the metrics are the
+ranks' mean), so all ranks stop together; SIGTERM flags are OR-reduced
+every ``--preempt_sync_every`` steps (default 25) and every rank breaks on the
+reduced flag. ``--async_ckpt`` stays one-process only, as in the JAX CLI.
+``--model_parallel`` and ``--mp_mode`` (the 2-D mesh) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 The special families (``layout2img_tpu/cli/train.py::main_special``), 64 px
 only, through the same loop (resume, saves, SIGTERM, NaN guard and drill,
@@ -86,7 +103,6 @@ import numpy as np
 import torch
 
 from layout2img_tpu_torch.cli.presets import EXPERIMENTS, dataset_spec, experiment
-from layout2img_tpu_torch.device import resolve_device
 
 SYNTHETIC_CLASSES, SYNTHETIC_OBJECTS = dataset_spec("synthetic")
 _ROADMAP = "ROADMAP.md §1 'Slices still to port', item"
@@ -166,11 +182,13 @@ def parse_args(argv=None):
     p.add_argument("--l2i_fusion", default="transformer",
                    choices=["transformer", "convlstm", "transformer_decoder", "transformer_noctx"],
                    help="--model layout2im: the layout encoder's fusion over objects")
+    p.add_argument("--preempt_sync_every", type=int, default=25,
+                   help="under a launcher: steps between OR-reductions of the ranks' SIGTERM "
+                        "flags (each one syncs the host with the card; the grace period must "
+                        "cover N steps and a save)")
     # later slices: set, they raise
     p.add_argument("--model_parallel", type=int, default=1, help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--mp_mode", default=None, help="not ported (ROADMAP §1 item 6)")
-    p.add_argument("--preempt_sync_every", type=int, default=None,
-                   help="not ported (ROADMAP §1 item 6)")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' must be asked for")
     return p.parse_args(argv)
 
@@ -179,8 +197,7 @@ def refuse_later_slices(args) -> None:
     """``NotImplementedError`` naming the ROADMAP item of a set flag that a
     later slice ports."""
     later = ((6, "--model_parallel", args.model_parallel != 1),
-             (6, "--mp_mode", args.mp_mode is not None),
-             (6, "--preempt_sync_every", args.preempt_sync_every is not None))
+             (6, "--mp_mode", args.mp_mode is not None))
     for item, flag, given in later:
         if given:
             raise NotImplementedError(f"{flag} is not ported yet: {_ROADMAP} {item}")
@@ -204,12 +221,17 @@ def build_dataset(args, num_objects: int, eval_mode: bool = False, fg_bg: bool =
     """The run's batch source: a ``HostDataLoader`` over COCO or VG, or a
     ``SyntheticLayoutDataset``. ``eval_mode``: no flip doubling, no
     shuffle, the tail batch kept (the reference's test protocol). ``fg_bg``:
-    COCO items carry the Ours-ED streams."""
+    COCO items carry the Ours-ED streams. Each data-parallel rank loads its
+    own shard of every global batch (``--batch_size`` is per process); the
+    synthetic dataset is seeded ``seed + rank``."""
     from layout2img_tpu_torch.data.coco import CocoLayoutDataset, HostDataLoader
     from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
     from layout2img_tpu_torch.data.vg import VgLayoutDataset
+    from layout2img_tpu_torch.parallel.mesh import current
 
-    load = dict(shuffle=not eval_mode, drop_last=not eval_mode)
+    mesh = current()
+    load = dict(shuffle=not eval_mode, drop_last=not eval_mode, process_id=mesh.rank,
+                process_count=mesh.world)
     if args.dataset == "coco":
         ds = CocoLayoutDataset(args.coco_image_dir, args.coco_instances, args.coco_stuff,
                                image_size=args.img_size, left_right_flip=not eval_mode,
@@ -220,7 +242,7 @@ def build_dataset(args, num_objects: int, eval_mode: bool = False, fg_bg: bool =
                              left_right_flip=not eval_mode)
     else:
         return SyntheticLayoutDataset(args.batch_size, args.img_size, num_objects,
-                                      seed=args.seed, steps=args.steps_per_epoch or 50)
+                                      seed=args.seed + mesh.rank, steps=args.steps_per_epoch or 50)
     return HostDataLoader(ds, args.batch_size, seed=args.seed, **load)
 
 
@@ -286,11 +308,25 @@ def build_networks(args, exp, device: torch.device):
 
 
 def main(argv=None):
-    from layout2img_tpu_torch.utils.logging import MetricWriter, close_logger, setup_logger
+    from layout2img_tpu_torch.parallel.mesh import make_mesh, shutdown
 
     args = parse_args(argv)
     refuse_later_slices(args)
-    device = resolve_device(args.device)
+    mesh = make_mesh(args.device)
+    try:
+        _main(args, mesh)
+    finally:
+        shutdown()
+
+
+def _main(args, mesh) -> None:
+    from layout2img_tpu_torch.utils.logging import MetricWriter, close_logger, setup_logger
+
+    device = mesh.device
+    torch.manual_seed(args.seed)  # the dropout masks: alike on every rank
+    if args.async_ckpt and mesh.world > 1:
+        raise SystemExit("--async_ckpt is one-process only (as in the JAX CLI); drop it under a "
+                         "launcher")
     exp = experiment(args.model)
     if exp.special:
         return main_special(args, device)
@@ -299,8 +335,8 @@ def main(argv=None):
     check_obj_budgets(getattr(loader, "dataset", loader).valid_object_counts(), args)
     gen, disc = build_networks(args, exp, device)
     out_dir = os.path.join(args.out_path, args.dataset, str(args.img_size), args.model)
-    log = setup_logger("layout2img_tpu_torch", out_dir)
-    writer = MetricWriter(out_dir, tensorboard=args.tensorboard)
+    log = setup_logger("layout2img_tpu_torch", out_dir, rank=mesh.rank)
+    writer = MetricWriter(out_dir, rank=mesh.rank, tensorboard=args.tensorboard)
     try:
         train(args, gen, disc, loader, out_dir, log, writer)
     finally:
@@ -311,6 +347,7 @@ def main(argv=None):
 def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: str,
           log: logging.Logger, writer) -> None:
     """The loop of ``layout2img_tpu/cli/train.py::main`` on built networks."""
+    from layout2img_tpu_torch.parallel.mesh import current, replicate
     from layout2img_tpu_torch.train.eval_hook import make_train_sample_fn
     from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
     from layout2img_tpu_torch.train.step import make_train_step
@@ -332,6 +369,7 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
         load_torch_into_state(state, args.torch_ckpt_g or None, args.torch_ckpt_d or None)
         log.info("fine-tuning from torch checkpoints: G=%s D=%s", args.torch_ckpt_g or "-",
                  args.torch_ckpt_d or "-")
+    replicate(current(), state)
     sample_fn = make_train_sample_fn(gen)
 
     def fake_grid(batch: dict, step: int) -> torch.Tensor:
@@ -347,8 +385,9 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
     written = {"G.pth": gen.state_dict(), "D.pth": disc.state_dict()}
     if state.ema is not None:
         written["G_ema.pth"] = ema_state_dict(gen, state.ema)
-    for name, sd in written.items():
-        torch.save(sd, os.path.join(out_dir, name))
+    if current().rank == 0:
+        for name, sd in written.items():
+            torch.save(sd, os.path.join(out_dir, name))
     log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
 
 
@@ -376,8 +415,10 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
     the end, the SIGTERM save. Returns False when the run diverged (the last
     good checkpoint kept)."""
     from layout2img_tpu_torch.data.prefetch import device_prefetch
+    from layout2img_tpu_torch.parallel.mesh import current
     from layout2img_tpu_torch.train.checkpoint import AsyncSaver, CheckpointManager
 
+    mesh = current()
     device = next(state.generator.parameters()).device
     ckpt = CheckpointManager(os.path.join(out_dir, "ckpt"))
     if args.resume and ckpt.latest_step() is not None:
@@ -387,6 +428,9 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
         ckpt = AsyncSaver(ckpt)
     log.info("training %s on %s (%s): batch %d, %s, from step %d", args.model, args.dataset,
              device, args.batch_size, precision, state.step)
+    if mesh.world > 1:
+        log.info("data parallel: %d ranks, batch %d per rank, global batch %d", mesh.world,
+                 args.batch_size, args.batch_size * mesh.world)
 
     preempted = {"flag": False}
     prev_handler = signal.signal(signal.SIGTERM, lambda signum, frame: preempted.update(flag=True))
@@ -398,12 +442,16 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
             m["d_loss"] = float("nan")  # --fault_inject_nan_at drill
         return m
 
+    def finite(m: dict[str, float]) -> bool:
+        """Whether every rank's metrics are finite (one verdict for all)."""
+        return not mesh.any(not all(math.isfinite(v) for v in m.values()))
+
     def metrics_ok() -> bool:
         """The pre-save check: a divergence between log points must not
         reach a save."""
         if not args.nan_guard or latest["metrics"] is None:
             return True
-        if all(math.isfinite(v) for v in read_metrics(latest["metrics"], latest["step"]).values()):
+        if finite(read_metrics(latest["metrics"], latest["step"])):
             return True
         log.error("non-finite metrics at step %d (pre-save check) — divergence; keeping the "
                   "last good checkpoint and exiting 3", latest["step"])
@@ -430,7 +478,7 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
                     prof = None
                 if state.step % args.log_every == 0:
                     m = read_metrics(metrics, state.step)
-                    if args.nan_guard and not all(math.isfinite(v) for v in m.values()):
+                    if args.nan_guard and not finite(m):
                         diverged = stop = True
                         log.error("non-finite metrics at step %d: %s — divergence; keeping the "
                                   "last good checkpoint (skipping further saves) and exiting 3",
@@ -439,16 +487,19 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
                     log.info("epoch %d step %d: %s", epoch + 1, state.step,
                              {k: round(v, 4) for k, v in m.items()})
                     writer.write(state.step, m)
-                    if fake_grid is not None:
+                    if fake_grid is not None and mesh.rank == 0:
                         writer.write_images(state.step, "fake", fake_grid(batch, state.step))
                     writer.write_images(state.step, "real", batch["images"][:16])
                 if evaluator is not None and state.step % args.eval_every == 0:
                     em = evaluator(state)
+                    mesh.barrier()  # no rank starts the next step while another evaluates
                     writer.write(state.step, em)
                     log.info("eval step %d: %s", state.step, {k: round(v, 4) for k, v in em.items()})
-                if preempted["flag"]:
-                    stop = True
-                    break
+                if mesh.group is None or state.step % max(1, args.preempt_sync_every) == 0:
+                    # every rank breaks on the OR of the flags, at the same step
+                    stop = mesh.any(preempted["flag"])
+                    if stop:
+                        break
                 if args.steps and taken >= args.steps:
                     capped = True
                     break
@@ -486,8 +537,16 @@ _SPECIAL_REFUSED = (("--ema_decay", "ema_decay", 0.0), ("--fused_d", "fused_d", 
 
 
 def main_special(args, device: torch.device) -> None:
-    """The Ours-ED and layout2im trainers (``layout2img_tpu/cli/train.py::main_special``)."""
+    """The Ours-ED and layout2im trainers (``layout2img_tpu/cli/train.py::main_special``).
+    JAX trains them on a one-process mesh over the host's devices and
+    refuses more processes; here that is ranks on one node."""
+    from layout2img_tpu_torch.parallel.mesh import current, replicate
     from layout2img_tpu_torch.utils.logging import MetricWriter, close_logger, setup_logger
+
+    mesh = current()
+    if mesh.nodes > 1:
+        raise SystemExit(f"--model {args.model} is a single-node trainer; launch it on one node "
+                         "(its ranks on one host), not across nodes")
 
     if args.g_obj_budget or args.d_obj_budget:
         raise SystemExit(f"--g_obj_budget/--d_obj_budget are LostGAN-family flags; --model "
@@ -501,8 +560,8 @@ def main_special(args, device: torch.device) -> None:
     args.img_size = 64
     num_classes, num_objects = dataset_spec(args.dataset)
     out_dir = os.path.join(args.out_path, args.dataset, str(args.img_size), args.model)
-    log = setup_logger("layout2img_tpu_torch", out_dir)
-    writer = MetricWriter(out_dir, tensorboard=args.tensorboard)
+    log = setup_logger("layout2img_tpu_torch", out_dir, rank=mesh.rank)
+    writer = MetricWriter(out_dir, rank=mesh.rank, tensorboard=args.tensorboard)
     try:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         if args.model == "ours_ed":
@@ -510,6 +569,7 @@ def main_special(args, device: torch.device) -> None:
         else:
             family = _layout2im(args, num_classes, num_objects, device, log)
         state, step_fn, evaluator, loader, keys, prepare = family
+        replicate(mesh, state)
         if not run_loop(args, state, step_fn, evaluator, loader, keys, out_dir, log, writer,
                         "f32", prepare=prepare):
             raise SystemExit(3)
@@ -570,9 +630,10 @@ def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.
                     prepare=None):
     """The ``--eval_every`` hook on a frozen pool of the loader's first
     ``ceil(eval_n / batch_size)`` batches (a loader's pass counts as an
-    epoch, as in the JAX CLI). With ``prepare`` (the special families) the
+    epoch, as in the JAX CLI): each rank's own, so the pool is W times that. With ``prepare`` (the special families) the
     pool is the prepared batches and ``sample_fn(batch, rng)`` takes whole
     batches (``PeriodicEval(batch_mode=True)``)."""
+    from layout2img_tpu_torch.parallel.mesh import current
     from layout2img_tpu_torch.train.eval_hook import PeriodicEval
 
     batches = iter(loader)
@@ -583,7 +644,8 @@ def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.
         batch_fn = sample_fn
         sample_fn = lambda params, batch, rng: batch_fn(batch, rng)  # noqa: E731 (no EMA here)
     evaluator = PeriodicEval(sample_fn, pool, inception_weights=args.inception_weights,
-                             device=device, seed=args.seed, batch_mode=prepare is not None)
+                             device=device, seed=args.seed, batch_mode=prepare is not None,
+                             mesh=current())
     if not evaluator.real_weights:
         log.warning("--eval_every without --inception_weights: rel_fid uses fixed-seed random "
                     "filters (relative trajectory only)")

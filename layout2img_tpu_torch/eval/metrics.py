@@ -166,14 +166,34 @@ def run_inception_nchw(net: torch.nn.Module, batches: Iterable[torch.Tensor]
     return np.concatenate(feats), np.concatenate(probs)
 
 
-def run_inception_batches(net: torch.nn.Module, batches: Iterable[np.ndarray]
+def run_inception_batches(net: torch.nn.Module, batches: Iterable[np.ndarray], mesh=None
                           ) -> tuple[np.ndarray, np.ndarray]:
     """``run_inception_nchw`` over (<=b, h, w, 3) NHWC numpy chunks in
     [-1, 1] (the arrays ``cli.evaluate`` decodes), each moved to the device
-    as NCHW f32."""
-    return run_inception_nchw(
-        net, (torch.from_numpy(np.ascontiguousarray(c, np.float32)).permute(0, 3, 1, 2)
-              for c in batches))
+    as NCHW f32.
+
+    ``mesh``: a data-parallel mesh (``parallel/mesh.py``) whose every rank
+    passes the same chunks: each chunk is padded up to a multiple of W (as
+    the JAX function pads to its mesh), each rank runs its rows, and the
+    features and probabilities of every rank are gathered and the pad rows
+    cut, so every rank returns what one process returns."""
+    if mesh is None or mesh.group is None:
+        return run_inception_nchw(
+            net, (torch.from_numpy(np.ascontiguousarray(c, np.float32)).permute(0, 3, 1, 2)
+                  for c in batches))
+    feats, probs = [], []
+    for c in batches:
+        c = np.asarray(c, np.float32)
+        n = c.shape[0]
+        per = -(-n // mesh.world)
+        c = np.concatenate([c, np.zeros((per * mesh.world - n, *c.shape[1:]), np.float32)])
+        mine = torch.from_numpy(np.ascontiguousarray(c[mesh.rank * per:(mesh.rank + 1) * per]))
+        f, p = run_inception_nchw(net, [mine.permute(0, 3, 1, 2)])
+        feats.append(mesh.gather_rows(f)[:n])
+        probs.append(mesh.gather_rows(p)[:n])
+    if not feats:
+        raise ValueError("no image batches to run inception on")
+    return np.concatenate(feats), np.concatenate(probs)
 
 
 def run_inception(net: torch.nn.Module, images: np.ndarray, batch_size: int = 64

@@ -43,16 +43,33 @@ from layout2img_tpu_torch.models.convlstm import LayoutConvLSTM
 from layout2img_tpu_torch.nn.attention import MultiHeadAttention
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, SNEmbed
 from layout2img_tpu_torch.ops.interp import crop_boxes
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 MOMENTUM = 0.1
 FUSIONS = ("transformer", "convlstm", "transformer_decoder", "transformer_noctx")
+
+
+def _global_moments(mesh, xf: torch.Tensor, mask: torch.Tensor | None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E[x], E[x^2], n) per channel over every rank's (masked) entries:
+    the sums over the ranks of x and x^2 (differentiable) and of the count."""
+    hw = xf.shape[2] * xf.shape[3]
+    if mask is None:
+        m, count = xf, torch.tensor(float(xf.shape[0] * hw), device=xf.device)
+    else:
+        w = mask.to(torch.float32)[:, None, None, None]
+        m, count = xf * w, w.sum() * hw
+    sums = mesh.sum(torch.stack([m.sum(dim=(0, 2, 3)), (m * xf).sum(dim=(0, 2, 3))]))
+    n = mesh.sum_detached(count).clamp_min(1.0)
+    return sums[0] / n, sums[1] / n, n
 
 
 class MaskedBatchNorm(nn.Module):
     """BN over (entries, h, w) of (n, c, h, w), where only the entries with
     ``mask`` (n,) > 0 count. Batch statistics in f32, the variance one-pass
     (``max(E[x^2] - E[x]^2, 0)``); the running variance is unbiased by the
-    masked count n = sum(mask) * h * w; momentum 0.1."""
+    masked count n = sum(mask) * h * w; momentum 0.1. Under a data-parallel
+    mesh the sums and the count are every rank's (``parallel/mesh.py``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True):
         super().__init__()
@@ -70,7 +87,10 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.to(torch.float32)
-            if mask is None:
+            mesh = data_mesh.current()
+            if mesh.world > 1:
+                mean, mean_sq, n = _global_moments(mesh, xf, mask)
+            elif mask is None:
                 mean = xf.mean(dim=(0, 2, 3))
                 mean_sq = xf.square().mean(dim=(0, 2, 3))
                 n = torch.tensor(float(x.numel() // x.shape[1]), device=x.device)

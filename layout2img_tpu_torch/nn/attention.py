@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.ops.relation import box_relational_embedding
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 
 class BoxMultiHeadedAttention(nn.Module):
@@ -86,7 +87,8 @@ class MultiHeadAttention(nn.Module):
     get -1e9 logits, before the 1/sqrt(d_k) scale. ``heads * d_v`` must
     equal ``d_model`` (the first residual). Dropout (``dropout_rate``, on
     the attention weights and on ``fc``'s output) runs unless the forward
-    is ``deterministic``, from torch's global generator."""
+    is ``deterministic``, from torch's global generator, its masks drawn
+    for the global batch (``parallel/mesh.py::dropout``)."""
 
     def __init__(self, heads: int, d_model: int, d_k: int, d_v: int, dropout_rate: float = 0.1):
         super().__init__()
@@ -114,9 +116,9 @@ class MultiHeadAttention(nn.Module):
         if labels is not None:
             logits = logits.masked_fill((labels == 0)[:, None, None, :], -1e9)
         attn = torch.softmax(logits / math.sqrt(self.d_k), dim=-1)
-        attn = torch.nn.functional.dropout(attn, drop, training=drop > 0)
+        attn = data_mesh.dropout(attn, drop, training=drop > 0)
         out = (attn @ v).transpose(1, 2).reshape(b, nq, h * self.d_v)
         out = self.ln0(out + query)
         inner = out
-        out = torch.nn.functional.dropout(self.fc(out), drop, training=drop > 0)
+        out = data_mesh.dropout(self.fc(out), drop, training=drop > 0)
         return self.ln1(out + inner)

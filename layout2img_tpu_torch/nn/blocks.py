@@ -23,6 +23,7 @@ from torch import nn
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm, SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv
 from layout2img_tpu_torch.ops.interp import adaptive_avg_pool2d, resize_bilinear
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +69,7 @@ class PSPModule(nn.Module):
         hw = tuple(x.shape[-2:])
         priors = [resize_bilinear(stage(x), hw, align_corners=True) for stage in self.stages]
         y = self.bottleneck(torch.cat([*priors, x], dim=1))
-        return F.dropout2d(y, self.dropout_rate, training=not deterministic)
+        return data_mesh.dropout(y, self.dropout_rate, training=not deterministic, feature=True)
 
 
 class GenResBlock(nn.Module):

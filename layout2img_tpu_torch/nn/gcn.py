@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from layout2img_tpu_torch.parallel import mesh as data_mesh
+
 
 def same_label_adjacency(labels: torch.Tensor) -> torch.Tensor:
     """(b, o) labels -> (b, o, o) row-normalized adjacency with self-loops, f32."""
@@ -51,5 +53,6 @@ class GraphFunc(nn.Module):
         """x (b, o, z_dim); labels (b, o). The adjacency is computed in f32
         and cast to x's dtype, so a bf16 x keeps the products in bf16."""
         adj = same_label_adjacency(labels).to(x.dtype)
-        h = F.dropout(F.relu(self.gc1(x, adj)), self.dropout_rate, training=not deterministic)
+        h = data_mesh.dropout(F.relu(self.gc1(x, adj)), self.dropout_rate,
+                              training=not deterministic)
         return x + self.gc2(h, adj)

@@ -4,10 +4,13 @@
 eval it uses the running statistics. In training it uses the batch mean and
 the biased batch variance, ``max(E[x^2] - mean^2, 0)`` in f32 as the JAX
 package computes them, and updates the running statistics without gradient:
-momentum 0.1, the running variance unbiased by n / (n - 1), n = b*h*w. (One
-device: the cross-GPU sync waits for the multi-GPU slice.) The recompute of
-a checkpointed region (``nn/remat.py``) folds nothing: the forward it repeats
-already did.
+momentum 0.1, the running variance unbiased by n / (n - 1), n = b*h*w. Under
+a data-parallel mesh (``parallel/mesh.py``) the batch is the global one: the
+sums of x and x^2 are summed over the ranks (differentiably, so the gradient
+of the statistics reaches every rank's x) and n counts every rank's pixels.
+The recompute of a checkpointed region (``nn/remat.py``) folds nothing: the
+forward it repeats already did; every rank recomputes in the same order, so
+its sums over the ranks meet.
 
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
 mask-weighted per-object affine, and optionally the ReLU that follows it in
@@ -28,15 +31,28 @@ from torch import nn
 from layout2img_tpu_torch.nn import remat
 from layout2img_tpu_torch.nn.spectral import SNDense
 from layout2img_tpu_torch.ops.isla import isla_norm
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 MOMENTUM = 0.1  # of the running statistics, as the JAX package's
 
 
 def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance of NCHW x, in f32."""
+    """Per-channel mean and biased variance of NCHW x over the global batch,
+    in f32."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(0, 2, 3))
-    return mean, (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+    mesh = data_mesh.current()
+    if mesh.world == 1:
+        mean = xf.mean(dim=(0, 2, 3))
+        return mean, (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+    sums = mesh.sum(torch.stack([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
+    n = stat_count(x)
+    mean = sums[0] / n
+    return mean, (sums[1] / n - mean.square()).clamp_min(0.0)
+
+
+def stat_count(x: torch.Tensor) -> int:
+    """The values per channel ``batch_stats`` averages: b*h*w on every rank."""
+    return x.numel() // x.shape[1] * data_mesh.current().world
 
 
 class SyncBatchNorm(nn.Module):
@@ -63,7 +79,7 @@ class SyncBatchNorm(nn.Module):
         mean, var = batch_stats(x)
         if remat.replaying():
             return mean, var
-        n = x.numel() // x.shape[1]
+        n = stat_count(x)
         m = MOMENTUM
         with torch.no_grad():
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean)

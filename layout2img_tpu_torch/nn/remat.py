@@ -19,6 +19,13 @@ equals its plain step; ``checkpoint`` here gives the port the same property:
 Regions may nest (``remat="d"`` around a discriminator whose first trunk
 blocks are checkpointed too): a value recorded or replayed in an inner
 region is recorded for every enclosing region as well.
+
+Under a data-parallel mesh (``parallel/mesh.py``) a recompute sums its BN
+statistics over the ranks again, as the forward did: its backward has to
+sum their gradients over the ranks too, which replayed constants could not.
+Every rank runs the same graph, so every rank recomputes the same regions in
+the same order and the collectives meet (``tests/test_torch_port_parallel.py``
+runs ``remat="gd"`` on 2 ranks).
 """
 
 from __future__ import annotations

@@ -304,15 +304,16 @@ def jax_initial_networks(a, device):
     return gen.to(device), disc.to(device)
 
 
-def torch_initial_networks(a, device):
+def torch_initial_networks(a, device, seed: int = 0):
     """G and D of a LostGAN configuration from seeded torch draws of the
-    JAX package's initializers (``utils/convert.py``): G from seed 0, D from
-    seed 1."""
+    JAX package's initializers (``utils/convert.py``): G from ``seed``, D
+    from ``seed + 1``."""
     from layout2img_tpu_torch.utils import convert
 
-    return (convert.init_generator(0, a.num_classes, preset=a.preset, device=device, ch=a.ch,
+    return (convert.init_generator(seed, a.num_classes, preset=a.preset, device=device, ch=a.ch,
                                    image_size=a.img_size, num_mask_classes=a.num_classes),
-            convert.init_discriminator(1, a.num_classes, device=device, image_size=a.img_size,
+            convert.init_discriminator(seed + 1, a.num_classes, device=device,
+                                       image_size=a.img_size,
                                        ch=a.ch, app_head=not a.no_app_head,
                                        remat_blocks=a.remat_d_blocks))
 

@@ -11,7 +11,12 @@ place, so a reader sees a whole checkpoint or none, and the ``keep`` newest
 steps are kept.
 
 ``AsyncSaver`` snapshots the state on the device and writes it in a
-background thread.
+background thread (one process only).
+
+Under a data-parallel mesh (``parallel/mesh.py``) the state is replicated:
+``save`` is called on every rank, and rank 0 writes between two barriers;
+``restore`` reads on every rank and checks that the ranks restored the same
+step.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import os
 import shutil
 import threading
 
+import numpy as np
 import torch
 
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 from layout2img_tpu_torch.train.ema import ema_init
 from layout2img_tpu_torch.train.state import GANTrainState
 
@@ -65,7 +72,11 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: GANTrainState) -> None:
-        self.write(state_dict(state), int(state.step))
+        mesh = data_mesh.current()
+        mesh.barrier()
+        if mesh.rank == 0:
+            self.write(state_dict(state), int(state.step))
+        mesh.barrier()
 
     def write(self, content: dict, step: int) -> None:
         """Write a checkpoint's content (``state_dict``'s form) as ``step``,
@@ -102,6 +113,9 @@ class CheckpointManager:
         state.g_opt.load_state_dict(ck["g_opt"])
         state.d_opt.load_state_dict(ck["d_opt"])
         state.step = int(ck["step"])
+        steps = data_mesh.current().gather_rows(np.array([state.step], np.int64))
+        if (steps != state.step).any():
+            raise RuntimeError(f"the ranks restored different steps: {steps.tolist()}")
         if "ema" in ck:
             params = dict(state.generator.named_parameters())
             if set(ck["ema"]) != set(params):

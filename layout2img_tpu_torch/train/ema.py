@@ -3,7 +3,9 @@
 
 Opt-in (``TrainConfig.ema_decay > 0``); it does not change the training
 math. The average is a ``{name: tensor}`` dict of f32 copies of the masters,
-updated after G's Adam step. Sampling prefers it: ``cli/train.py`` writes it
+updated after G's Adam step; under a data-parallel mesh the masters are
+stepped with the all-reduced gradients, so every rank's EMA is the same.
+Sampling prefers it: ``cli/train.py`` writes it
 with the live generator's buffers as ``G_ema.pth``.
 """
 

@@ -15,7 +15,11 @@ the same latents and reports
 
 Batch ``i``'s latents come from ``torch.Generator(device).manual_seed(seed *
 100003 + i)``, so two evaluations differ only through the generator's
-weights. The hook samples the EMA parameters when the state has them, and
+weights. Under a data-parallel mesh each rank holds its own pool, samples
+it (rank r's batch i from seed ``(seed * 100003 + i) * W + r``) and runs
+Inception on its own images; the features of every rank are gathered, so
+every rank computes the same numbers over the W pools. The hook samples
+the EMA parameters when the state has them, and
 changes no training state: the sampler runs the generator in eval mode
 (running BN statistics, no SN power iteration) on generators of its own.
 """
@@ -31,6 +35,7 @@ from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.eval.inception import load_inception
 from layout2img_tpu_torch.eval.metrics import (feature_stats, frechet_distance, inception_score,
                                                run_inception_nchw)
+from layout2img_tpu_torch.parallel.mesh import DataMesh
 
 
 def make_train_sample_fn(gen: torch.nn.Module, truncation: float = 2.0) -> Callable:
@@ -77,11 +82,12 @@ class PeriodicEval:
       device: where Inception runs and the latent generators live (default
         cuda).
       seed: the frozen latents' seed.
+      mesh: the data-parallel mesh (``parallel/mesh.py``; default: one process).
     """
 
     def __init__(self, sample_fn: Callable, eval_batches: list, *,
                  inception_weights: str = "", device: str | torch.device | None = None,
-                 seed: int = 0, batch_mode: bool = False):
+                 seed: int = 0, batch_mode: bool = False, mesh: DataMesh | None = None):
         if not eval_batches:
             raise ValueError("PeriodicEval needs at least one eval batch")
         self.device = resolve_device(device)
@@ -90,6 +96,7 @@ class PeriodicEval:
         self._sample_fn = sample_fn
         self._seed = seed
         self._batch_mode = batch_mode
+        self._mesh = mesh or DataMesh()
         if batch_mode:
             self._layouts = [{k: torch.as_tensor(np.asarray(v)) for k, v in b.items()
                               if k != "images"} for b in eval_batches]
@@ -98,12 +105,14 @@ class PeriodicEval:
                               torch.as_tensor(np.asarray(b["labels"]))) for b in eval_batches]
         real, _ = run_inception_nchw(
             self._net, (torch.as_tensor(np.asarray(b["images"])) for b in eval_batches))
+        real = self._mesh.gather_rows(real)
         self._real_mu, self._real_sigma = feature_stats(real)
         self.n_images = len(real)
 
     def _fakes(self, params: dict | None):
         for i, layout in enumerate(self._layouts):
-            rng = torch.Generator(device=self.device).manual_seed(self._seed * 100003 + i)
+            seed = (self._seed * 100003 + i) * self._mesh.world + self._mesh.rank
+            rng = torch.Generator(device=self.device).manual_seed(seed)
             if self._batch_mode:
                 yield self._sample_fn(params, layout, rng)
             else:
@@ -111,6 +120,7 @@ class PeriodicEval:
 
     def __call__(self, state) -> dict:
         feats, probs = run_inception_nchw(self._net, self._fakes(getattr(state, "ema", None)))
+        feats, probs = self._mesh.gather_rows(feats), self._mesh.gather_rows(probs)
         mu, sigma = feature_stats(feats)
         out = {"rel_fid": frechet_distance(mu, sigma, self._real_mu, self._real_sigma)}
         if self.real_weights:

@@ -42,6 +42,12 @@ The knobs of ``TrainConfig``, with the JAX step's semantics:
 - ``ema_decay`` > 0: the EMA of G's parameters is updated after G's Adam
   step (``train/ema.py``).
 
+Data parallelism (``parallel/mesh.py``): each rank runs this step on its
+shard of the global batch; z and z_im are drawn for the global batch and
+cut to the rank's rows (before any budget compaction); the BN statistics,
+masked means, gradients and metrics are global; ``fused_d`` and the SN power
+iterations run on each rank on replicated weights, so they stay bit-equal.
+
 Gradients are taken with ``torch.autograd.grad``, so D's gradient from the
 G loss never reaches D's optimizer, and a parameter with no gradient gets a
 zero one (optax updates every leaf; torch's Adam skips a ``None``). Each
@@ -58,6 +64,7 @@ from torch import nn
 from layout2img_tpu_torch.losses.gan import g_adv, hinge_d_fake, hinge_d_real
 from layout2img_tpu_torch.models.generators import obj_budget_error
 from layout2img_tpu_torch.nn import remat
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 from layout2img_tpu_torch.train.ema import ema_update
 from layout2img_tpu_torch.train.state import GANTrainState, TrainConfig
 from layout2img_tpu_torch.utils.casting import cast_params
@@ -65,11 +72,25 @@ from layout2img_tpu_torch.utils.casting import cast_params
 
 def _apply_grads(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: torch.Tensor) -> None:
     """Set each parameter's ``.grad`` to this loss's gradient (replacing, not
-    adding to, the last step's) and step the optimizer."""
+    adding to, the last step's), averaged over the data-parallel ranks in
+    one f32 buffer (``parallel/mesh.py::DataMesh.all_reduce_grads``), and
+    step the optimizer."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    for p, g in zip(params, data_mesh.current().all_reduce_grads(grads)):
+        p.grad = g
     opt.step()
+
+
+def global_normal(rng: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """This rank's rows of a standard normal draw for the global batch:
+    ``shape[0]`` rows per rank, W times as many drawn from ``rng``, so each
+    rank draws what one process draws at the global batch."""
+    mesh = data_mesh.current()
+    full = torch.randn((shape[0] * mesh.world, *shape[1:]), generator=rng, device=rng.device,
+                       dtype=dtype)
+    return mesh.rows(full).to(device)
 
 
 def compact_order(labels: torch.Tensor, k: int) -> torch.Tensor:
@@ -195,15 +216,15 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
             ema_update(state.ema, gen, config.ema_decay)
 
         state.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                **{k: v.detach() for k, v in {**metrics, **budget}.items()}}
+        return data_mesh.current().mean_metrics(
+            {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+             **{k: v.detach() for k, v in {**metrics, **budget}.items()}})
 
     def train_step(batch: dict, rng: torch.Generator) -> dict[str, torch.Tensor]:
         b, o = batch["labels"].shape
         dev = batch["labels"].device
-        draw = dict(generator=rng, device=rng.device, dtype=dtype)
-        z = torch.randn((b, o, config.z_dim), **draw).to(dev)
-        z_im = torch.randn((b, config.z_dim), **draw).to(dev)
+        z = global_normal(rng, (b, o, config.z_dim), dtype, dev)
+        z_im = global_normal(rng, (b, config.z_dim), dtype, dev)
         return with_latents(batch, z, z_im)
 
     train_step.with_latents = with_latents

@@ -17,8 +17,9 @@ critiques the composite against the full layout. As in the JAX step:
 
 Latents: z_fg, z_bg (b, o, z_dim), z_im_fg, z_im_bg (b, z_dim), standard
 normal draws from the step's ``torch.Generator`` in that order (the JAX
-step's order of keys); the sampler draws them truncated to
-``[-truncation, truncation]``.
+step's order of keys), each drawn for the global batch and cut to the
+rank's rows under a data-parallel mesh (``train/step.py::global_normal``);
+the sampler draws them truncated to ``[-truncation, truncation]``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch
 from layout2img_tpu_torch.losses.gan import g_adv, hinge_d_fake, hinge_d_real
 from layout2img_tpu_torch.models.generators import BgFgGenerator
 from layout2img_tpu_torch.train.state import GANTrainState, TrainConfig, _adam
-from layout2img_tpu_torch.train.step import _apply_grads
+from layout2img_tpu_torch.parallel import mesh as data_mesh
+from layout2img_tpu_torch.train.step import _apply_grads, global_normal
 
 STREAM_KEYS = ("labels_fg", "boxes_fg", "labels_bg", "boxes_bg")
 
@@ -42,10 +44,6 @@ def create_bgfg_state(generator: BgFgGenerator, discriminator: torch.nn.Module,
     Adams."""
     return GANTrainState(generator, discriminator, _adam(generator, config.g_lr, config),
                          _adam(discriminator, config.d_lr, config))
-
-
-def _draw(shape: tuple[int, ...], rng: torch.Generator, device) -> torch.Tensor:
-    return torch.randn(shape, generator=rng, device=rng.device).to(device)
 
 
 def make_bgfg_train_step(state: GANTrainState, config: TrainConfig,
@@ -88,15 +86,17 @@ def make_bgfg_train_step(state: GANTrainState, config: TrainConfig,
             g_loss = g_loss + metrics["feat_loss"]
         _apply_grads(state.g_opt, g_params, g_loss)
         state.step += 1
-        return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                **{k: v.detach() for k, v in metrics.items()}}
+        return data_mesh.current().mean_metrics(
+            {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+             **{k: v.detach() for k, v in metrics.items()}})
 
     def train_step(batch: dict, rng: torch.Generator) -> dict[str, torch.Tensor]:
         b, o = batch["labels"].shape
         dev = batch["labels"].device
-        z = gen.z_dim
-        return with_latents(batch, _draw((b, o, z), rng, dev), _draw((b, o, z), rng, dev),
-                            _draw((b, z), rng, dev), _draw((b, z), rng, dev))
+        z, f32 = gen.z_dim, torch.float32
+        return with_latents(batch, global_normal(rng, (b, o, z), f32, dev),
+                            global_normal(rng, (b, o, z), f32, dev),
+                            global_normal(rng, (b, z), f32, dev), global_normal(rng, (b, z), f32, dev))
 
     train_step.with_latents = with_latents
     return train_step

@@ -24,7 +24,10 @@ Per-object terms are masked to the valid slots. As in the JAX step:
 
 Latents: z_rand (b, o, z_dim) from the step's ``torch.Generator``, then the
 VAE noise of the real crops' and the random image's crops' encodings
-(eps_real, eps_rand, each (b, o, z_dim)), then the dropout seed.
+(eps_real, eps_rand, each (b, o, z_dim)), then the dropout seed. Under a
+data-parallel mesh each latent is drawn for the global batch and cut to the
+rank's rows, the dropout masks likewise (``parallel/mesh.py::dropout``), and
+the masked BN counts and masked means are global.
 
 ``make_layout2im_sample_fn`` is the family's sampler (the JAX CLIs'
 ``Layout2ImGenerator.sample`` closures): truncated-normal z in eval mode.
@@ -43,7 +46,8 @@ from layout2img_tpu_torch.losses.gan import g_adv, hinge_d_fake, hinge_d_real, m
 from layout2img_tpu_torch.ops.bbox import bbox_mask
 from layout2img_tpu_torch.ops.interp import crop_boxes
 from layout2img_tpu_torch.train.state import GANTrainState
-from layout2img_tpu_torch.train.step import _apply_grads
+from layout2img_tpu_torch.parallel import mesh as data_mesh
+from layout2img_tpu_torch.train.step import _apply_grads, global_normal
 
 CROP = 32  # the object crops' size
 
@@ -134,13 +138,13 @@ def make_layout2im_train_step(state: GANTrainState, cfg: Layout2ImConfig) -> Cal
         state.step += 1
         metrics = {"d_loss": d_loss, "g_loss": g_loss, "img_rec_l1": img_rec_l1, "kl": kl,
                    "z_rec_l1": z_rec_l1, "g_adv": adv}
-        return {k: v.detach() for k, v in metrics.items()}
+        return data_mesh.current().mean_metrics({k: v.detach() for k, v in metrics.items()})
 
     def train_step(batch: dict, rng: torch.Generator) -> dict[str, torch.Tensor]:
         b, o = batch["labels"].shape
         dev = batch["labels"].device
-        z_rand, eps_real, eps_rand = (torch.randn((b, o, cfg.z_dim), generator=rng,
-                                                  device=rng.device).to(dev) for _ in range(3))
+        z_rand, eps_real, eps_rand = (global_normal(rng, (b, o, cfg.z_dim), torch.float32, dev)
+                                      for _ in range(3))
         seed = int(torch.randint(2**62, (1,), generator=rng, device=rng.device).item())
         devices = [dev] if dev.type == "cuda" else []
         with torch.random.fork_rng(devices=devices, device_type=dev.type):

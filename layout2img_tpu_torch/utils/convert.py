@@ -361,13 +361,25 @@ def lpips_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+# the std of a standard normal truncated to [-2, 2]
+_TRUNCATED_STD = .87962566103423978
+
+
+def _truncated_(w: torch.Tensor, variance: float, g: torch.Generator) -> None:
+    """flax's ``variance_scaling(..., "truncated_normal")`` draw: a standard
+    normal truncated to [-2, 2], scaled to ``variance``."""
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+    w.mul_(variance ** 0.5 / _TRUNCATED_STD)
+
+
 @torch.no_grad()
 def _init_(gen: nn.Module, g: torch.Generator) -> None:
     """Fill every parameter and buffer of a CPU module from ``g``:
     orthogonal weights as the JAX package initializes them, zero biases,
     identity BN statistics, zero alphas, Gaussian SN vectors, lecun-normal
-    plain convs, and the GCN's weights and biases uniform in
-    ±1/sqrt(out) (the reference's ``GraphConvolution``)."""
+    plain convs (flax's: a normal truncated at two of its standard
+    deviations, with variance 1 / fan_in), and the GCN's weights and biases
+    uniform in ±1/sqrt(out) (the reference's ``GraphConvolution``)."""
 
     def ortho(w: torch.Tensor) -> None:
         mat = torch.empty(w.shape[0], w[0].numel())
@@ -383,8 +395,7 @@ def _init_(gen: nn.Module, g: torch.Generator) -> None:
         elif isinstance(mod, (nn.Linear, nn.Embedding)):
             ortho(mod.weight)
         elif isinstance(mod, nn.Conv2d):
-            fan_in = mod.weight[0].numel()
-            mod.weight.normal_(std=fan_in ** -0.5, generator=g)  # lecun normal
+            _truncated_(mod.weight, 1.0 / mod.weight[0].numel(), g)  # lecun normal
         elif isinstance(mod, GraphConvolution):
             bound = mod.weight.shape[1] ** -0.5
             for t in (mod.weight, mod.bias):
@@ -457,13 +468,14 @@ def _init_layout2im_(net: nn.Module, g: torch.Generator) -> None:
     """``_init_`` with the layout2im family's initializers on top, as the
     JAX modules draw them: lecun-normal convs, transposed convs and linears
     (the attention's projections normal with std sqrt(2 / (d_model + d_k)),
-    its ``fc`` xavier-normal), the label embedding normal with std
+    its ``fc`` xavier-normal; lecun and xavier normals truncated as flax's),
+    the label embedding normal with std
     dim^-1/2, the conditional BN's gamma N(0, 0.02) and beta 0, the
     decoder's query uniform in [0, 1)."""
     _init_(net, g)
 
     def lecun(w: torch.Tensor, fan_in: int) -> None:
-        w.normal_(std=fan_in ** -0.5, generator=g)
+        _truncated_(w, 1.0 / fan_in, g)
 
     for mod in net.modules():
         if isinstance(mod, nn.ConvTranspose2d):
@@ -485,7 +497,7 @@ def _init_layout2im_(net: nn.Module, g: torch.Generator) -> None:
             d_model = mod.ln0.normalized_shape[0]
             for lin, d in ((mod.w_qs, mod.d_k), (mod.w_ks, mod.d_k), (mod.w_vs, mod.d_v)):
                 lin.weight.normal_(std=(2.0 / (d_model + d)) ** 0.5, generator=g)
-            nn.init.xavier_normal_(mod.fc.weight, generator=g)
+            _truncated_(mod.fc.weight, 2.0 / sum(mod.fc.weight.shape), g)  # xavier normal
         elif isinstance(mod, ConditionalBatchNorm):
             mod.gamma.weight.normal_(std=0.02, generator=g)
             mod.beta.weight.zero_()
@@ -522,7 +534,7 @@ def init_layout2im_discriminators(seed: int, num_classes: int, conv_dim: int = 6
 
 def init_vgg(seed: int, device: str | torch.device | None = None) -> VGG19Features:
     """VGG19 features to relu5_1 with seeded random filters (lecun normal,
-    zero biases), on ``device`` (default cuda)."""
+    truncated as flax's; zero biases), on ``device`` (default cuda)."""
     dev = resolve_device(device)
     vgg = VGG19Features()
     _init_(vgg, torch.Generator().manual_seed(seed))

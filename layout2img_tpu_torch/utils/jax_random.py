@@ -10,7 +10,7 @@ default since 0.5), ``split``, ``fold_in``, flax's SHA-1 fold of a scope's
 path into its ``params`` key, the uniform and normal draws (XLA's
 single-precision ``erf_inv``), and the orthogonal, variance-scaling, zero,
 one and the GCN's uniform initializers. Bits are JAX's; floats agree with it to f32 round-off
-(numpy's ``log``, ``erf`` and LAPACK QR against XLA's).
+(numpy's ``log`` and ``erf`` and torch's LAPACK QR against XLA's).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import hashlib
 import math
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _U32 = np.uint32
@@ -134,7 +135,7 @@ def orthogonal(key: np.ndarray, shape, column_axis: int = -1) -> np.ndarray:
     n_cols = shape[column_axis]
     n_rows = math.prod(shape) // n_cols
     a = normal(key, (n_cols, n_rows) if n_rows < n_cols else (n_rows, n_cols))
-    q, r = np.linalg.qr(a)
+    q, r = (t.numpy() for t in torch.linalg.qr(torch.from_numpy(a)))  # LAPACK, threaded
     q = q * np.sign(np.diag(r))[None, :]
     if n_rows < n_cols:
         q = q.T

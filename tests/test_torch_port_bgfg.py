@@ -68,7 +68,7 @@ from layout2img_tpu_torch.utils.convert import (bgfg_generator_state_dict_from_j
                                                 discriminator_state_dict_from_jax,
                                                 generator_state_dict_from_jax,
                                                 init_bgfg_generator, init_discriminator)
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 TOL = 2e-3
 CH, B, O, Z = 4, 2, 4, 128
@@ -200,7 +200,7 @@ def test_feature_only_generator_matches_jax(bgfg, train):
     jgen = JaxLostGANGenerator(num_classes=NUM_FG, image_size=64, ch=CH, emb_dim=128,
                                mask_trunk="v1", rgb_head=False)
     z, boxes, labels, z_im = args[0], args[1], args[2], args[6]
-    want, new = jax.jit(functools.partial(jgen.apply, train=train, update_stats=train,
+    want, new = fast_jit(functools.partial(jgen.apply, train=train, update_stats=train,
                                           mutable=["batch_stats", "spectral"]))(
         sub, z, boxes, labels, z_im)
     gen = LostGANGenerator(NUM_FG, image_size=64, ch=CH, emb_dim=128, mask_trunk="v1",
@@ -220,7 +220,7 @@ def test_feature_only_generator_matches_jax(bgfg, train):
 @pytest.mark.parametrize("train", [False, True])
 def test_bgfg_forward_matches_jax(bgfg, train):
     jgen, variables, args = bgfg
-    want, new = jax.jit(functools.partial(jgen.apply, train=train, update_stats=train,
+    want, new = fast_jit(functools.partial(jgen.apply, train=train, update_stats=train,
                                           mutable=["batch_stats", "spectral"]))(variables, *args)
     gen = _port_bgfg(variables).train(train)
     t_args = [_t(a) for a in args]
@@ -275,7 +275,7 @@ def step_pair():
     keys = jax.random.split(key, 5)
     latents = [np.asarray(jax.random.normal(keys[i], shape))
                for i, shape in enumerate([(B, O, Z), (B, O, Z), (B, Z), (B, Z)])]
-    new, metrics = jax.jit(jax_make_bgfg_train_step(jgen, jdisc, cfg))(state, jbatch, key)
+    new, metrics = fast_jit(jax_make_bgfg_train_step(jgen, jdisc, cfg))(state, jbatch, key)
 
     def tree(params, rest):
         return jax.tree_util.tree_map(np.asarray, {"params": params, **rest})

@@ -53,7 +53,7 @@ from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 from layout2img_tpu_torch.train.step import make_train_step
 from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
 from layout2img_tpu_torch.utils.reference import load_torch_vgg19_features, reference_state_dict
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 from test_torch_port_train import _jax_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -293,14 +293,18 @@ def test_nan_guard_keeps_the_last_good_checkpoint(tmp_path, caplog, case):
                                        (["--model_parallel", "2"], 6), (["--mp_mode", "spatial"], 6),
                                        (["--preempt_sync_every", "5"], 6)])
 def test_later_slice_flags_name_the_roadmap(tmp_path, flag, item):
-    """Multi-GPU's flags (item 6) raise; ``--l2i_fusion`` (item 5, ported)
-    is the layout2im fusion flag, checked against its choices."""
-    if item == 5:
+    """The 2-D mesh's flags (item 6) raise; ``--l2i_fusion`` (item 5,
+    ported) is the layout2im fusion flag, checked against its choices;
+    ``--preempt_sync_every`` (item 6's data mesh, ported) is an int that
+    nothing refuses."""
+    if flag[0] in ("--l2i_fusion", "--preempt_sync_every"):
         args = train_cli.parse_args([*SYNTH, *flag])
-        assert args.l2i_fusion == "convlstm"
         train_cli.refuse_later_slices(args)
+        name, bad = (("l2i_fusion", "no_such_fusion") if item == 5
+                     else ("preempt_sync_every", "often"))
+        assert str(getattr(args, name)) == flag[1]
         with pytest.raises(SystemExit):
-            train_cli.parse_args([*SYNTH, "--l2i_fusion", "no_such_fusion"])
+            train_cli.parse_args([*SYNTH, flag[0], bad])
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 .*item {item}"):
         train_cli.main([*SYNTH, "--out_path", str(tmp_path / "o"), *flag])
@@ -342,8 +346,8 @@ def test_reference_weights_first_step_matches_jax(tmp_path):
     rng = torch.Generator().manual_seed(0)  # the CLI's latent generator
     z = torch.randn((2, 8, 128), generator=rng).numpy()
     z_im = torch.randn((2, 128), generator=rng).numpy()
-    step = jax.jit(lambda gv, dv, bt, z, zi: _jax_step(jgen, jdisc, gv, dv, bt, z, zi,
-                                                       TrainConfig()))
+    step = fast_jit(lambda gv, dv, bt, z, zi: _jax_step(jgen, jdisc, gv, dv, bt, z, zi,
+                                                        TrainConfig()))
     *_, metrics, _, fake = step(g_vars, d_vars, batch, z, z_im)
     feat = JaxVGGLoss(jax_load_vgg(v_path))(fake, batch["images"])
     want = {k: float(v) for k, v in metrics.items()}

@@ -20,6 +20,7 @@ from layout2img_tpu_torch.cli import export_torch, sample
 from layout2img_tpu_torch.train.checkpoint import CheckpointManager
 from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 SAMPLE_LINES = [
     # the verification runbook's sample step

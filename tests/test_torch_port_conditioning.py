@@ -4,8 +4,9 @@ train_conditioning_check.py``) against the JAX repo's script, on the CPU.
 - Its numpy helpers (palette, the LostGAN and the fg/bg tasks' batches, the
   three scores) equal the JAX script's (loaded by path) on the same
   ``default_rng`` draws, bit for bit.
-- One tiny run per family (ch=4, b=2, 2 chunks of 2 steps) trains through
-  the port's step, finishes with finite losses and prints its scores; the
+- One tiny run per family (ch=4, b=2, 2 chunks of 2 steps; layout2im, whose
+  G is 64 wide at any ``--ch``, 1 chunk of 1 step) trains through the
+  port's step, finishes with finite losses and prints its scores; the
   script's gate refuses a run that did not learn, and ``--torch_init`` is
   refused with a message naming the ROADMAP.
 """
@@ -67,14 +68,16 @@ def test_batches_and_scores_equal_the_jax_script(jax_check, kind):
 
 @pytest.mark.parametrize("preset", ["ours_d_context128", "ours_ed", "layout2im"])
 def test_tiny_run_finishes_and_prints_its_scores(preset, tmp_path, capsys, monkeypatch):
-    monkeypatch.setattr(check, "STEPS_PER_CHUNK", 2)
-    argv = ["--preset", preset, "--ch", "4", "--batch_size", "2", "--chunks", "2",
+    chunks, per_chunk = (1, 1) if preset == "layout2im" else (2, 2)
+    monkeypatch.setattr(check, "STEPS_PER_CHUNK", per_chunk)
+    argv = ["--preset", preset, "--ch", "4", "--batch_size", "2", "--chunks", str(chunks),
             "--device", "cpu", "--image_out", str(tmp_path / "grid.png")]
     result = check.run_check(check.parse_args(argv))
     out = capsys.readouterr().out
     assert f"[{preset} c=12 o=4] color score before training" in out
     assert "color-conditioning score:" in out and f"wrote {tmp_path / 'grid.png'}" in out
-    assert result["steps"] == 4 and result["isla_launches_per_step"] == [0, 0, 0]
+    assert result["steps"] == chunks * per_chunk
+    assert result["isla_launches_per_step"] == [0, 0, 0]
     assert math.isfinite(result["score_before"]) and math.isfinite(result["score_after"])
     if preset == "ours_ed":
         assert set(result["extra_after"]) == {"bg", "fg_orth"}

@@ -13,14 +13,17 @@ in numpy (``utils/jax_random.py``). Here:
 - the tables equal what flax does when the JAX script initializes (each
   ``Scope.param``/``Scope.variable`` call recorded with the key suffix of
   the ``make_rng`` calls it made, and its initializer identified by its
-  values); ``python tests/test_torch_port_conditioning_init.py`` rewrites
-  the file from that record;
+  values; ``..._init_tables.py`` for the flagship, ``..._init_presets.py``
+  for the others); ``python tests/test_torch_port_conditioning_init.py``
+  rewrites the file from that record;
 - the port's numpy PRNG gives JAX's keys and bits exactly, and its floats to
   f32 round-off;
 - the networks ``jax_initial_networks`` builds hold JAX's initial weights
   converted to the port's layout, to 1e-5 (2.2e-6 seen: XLA's and numpy's
   QR and ``log1p`` round differently), with the same BN statistics and SN
-  vectors.
+  vectors (those two files);
+- the port's seeded draws (``cli.train``'s initializers) follow flax's
+  distribution, leaf by leaf (here).
 """
 
 import json
@@ -41,6 +44,7 @@ from layout2img_tpu_torch.scripts import train_conditioning_check as check
 from layout2img_tpu_torch.utils import jax_random as jr
 from layout2img_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                                 generator_state_dict_from_jax)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 KINDS = ("zeros", "ones", "orthogonal", "normal", "lecun_normal", "xavier_uniform",
          "xavier_normal", "uniform_fan_out")
@@ -134,9 +138,10 @@ def check_tables(recorded) -> None:
         assert [t for t in committed if t["config"] == table["config"]] == [table]
 
 
-def check_networks(variables, argv) -> None:
-    """The port's networks from the table hold JAX's initial weights."""
-    gen, disc = check.jax_initial_networks(check.parse_args(argv), "cpu")
+def check_networks(variables, argv, nets=None) -> None:
+    """The port's networks from the table (``nets``, else drawn here) hold
+    JAX's initial weights."""
+    gen, disc = nets or check.jax_initial_networks(check.parse_args(argv), "cpu")
     for net, port, want in (
             ("generator", gen, generator_state_dict_from_jax(variables["generator"], res_start=2)),
             ("discriminator", disc, discriminator_state_dict_from_jax(variables["discriminator"]))):
@@ -148,12 +153,17 @@ def check_networks(variables, argv) -> None:
 
 
 @pytest.fixture(scope="module")
-def recorded():
-    return [_record(check.parse_args(argv)) for argv in CONFIGS]
+def jax_nets():
+    """``jax_initial_networks`` per configuration, each drawn once per file."""
+    nets = {}
 
+    def get(argv):
+        key = tuple(argv)
+        if key not in nets:
+            nets[key] = check.jax_initial_networks(check.parse_args(argv), "cpu")
+        return nets[key]
 
-def test_tables_are_what_the_jax_script_draws(recorded):
-    check_tables(recorded)
+    return get
 
 
 def test_numpy_prng_is_jax_prng():
@@ -174,10 +184,6 @@ def test_numpy_prng_is_jax_prng():
                                        err_msg=f"{name} {shape}")
 
 
-def test_port_networks_hold_the_jax_initial_weights(recorded):
-    check_networks(recorded[0][1], CONFIGS[0])
-
-
 def _spread(t: torch.Tensor) -> tuple[float, float]:
     """(std, largest distance from the mean in stds) of a leaf."""
     t = t.double()
@@ -186,18 +192,17 @@ def _spread(t: torch.Tensor) -> tuple[float, float]:
 
 
 @pytest.mark.parametrize("argv", TABLE_CONFIGS, ids=("flagship", "graph128", "context128_part"))
-def test_seeded_torch_init_draws_as_flax(argv):
+def test_seeded_torch_init_draws_as_flax(argv, jax_nets):
     """The port's seeded draws (``torch_initial_networks``: ``cli.train``'s
     initializers) against the JAX script's initial weights, leaf by leaf:
     the same constant leaves; for each random leaf of 1000 values or more,
-    its std within 10%, and bounded exactly where JAX's is, but for one
-    known difference: where flax draws a truncated normal (lecun-normal,
-    cut at two of its standard deviations), the port draws an untruncated
-    normal of the same variance."""
+    its std within 10%, and its tail where JAX's is: within 2 of its stds
+    (a uniform ends at 1.73), within 2 to 2.45 (a normal truncated at two of
+    its standard deviations, such as flax's lecun-normal, ends at 2 / 0.8796
+    = 2.27), or past 2.6 (a normal or orthogonal leaf)."""
     a = check.parse_args(argv)
-    jax_nets = check.jax_initial_networks(a, "cpu")
     for net, port, want in zip(("generator", "discriminator"),
-                               check.torch_initial_networks(a, "cpu"), jax_nets):
+                               check.torch_initial_networks(a, "cpu"), jax_nets(argv)):
         got_sd, want_sd = port.state_dict(), want.state_dict()
         assert set(got_sd) == set(want_sd), net
         for k, w in want_sd.items():
@@ -209,10 +214,12 @@ def test_seeded_torch_init_draws_as_flax(argv):
             elif w.numel() >= 1000:
                 (w_std, w_tail), (g_std, g_tail) = _spread(w), _spread(g)
                 assert 0.9 < g_std / w_std < 1.1, f"{net} {k}: std {g_std} against JAX's {w_std}"
-                # a uniform ends at 1.73 of its stds, a truncated normal at 2 / 0.8796 = 2.27;
-                # 1000 normal or orthogonal values reach past 2.6 but for a chance of 1e-4
-                assert g_tail < 2.0 if w_tail < 2.0 else g_tail > 2.6, (
-                    f"{net} {k}: tail {g_tail} against {w_tail}")
+                # 1000 normal or orthogonal values reach past 2.6 but for a chance of 1e-4,
+                # and 1000 truncated ones past 2.0 but for less (the sample's std and mean
+                # move the truncated tail by a few %)
+                band = 0 if w_tail < 2.0 else 1 if w_tail <= 2.45 else 2
+                assert band == (0 if g_tail < 2.0 else 1 if g_tail <= 2.45 else 2) and (
+                    band < 2 or g_tail > 2.6), f"{net} {k}: tail {g_tail} against {w_tail}"
 
 
 def test_other_configurations_have_no_table():

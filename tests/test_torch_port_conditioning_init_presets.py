@@ -6,7 +6,9 @@ the JAX initializations run on another worker)."""
 import pytest
 
 from layout2img_tpu_torch.scripts import train_conditioning_check as check
-from test_torch_port_conditioning_init import TABLE_CONFIGS, _record, check_networks, check_tables
+from test_torch_port_conditioning_init import (TABLE_CONFIGS, _record, check_networks,  # noqa: F401
+                                               check_tables, jax_nets)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 CONFIGS = TABLE_CONFIGS[1:]
 
@@ -21,5 +23,5 @@ def test_tables_are_what_the_jax_script_draws(recorded):
 
 
 @pytest.mark.parametrize("config", range(len(CONFIGS)))
-def test_port_networks_hold_the_jax_initial_weights(recorded, config):
-    check_networks(recorded[config][1], CONFIGS[config])
+def test_port_networks_hold_the_jax_initial_weights(recorded, config, jax_nets):
+    check_networks(recorded[config][1], CONFIGS[config], jax_nets(CONFIGS[config]))

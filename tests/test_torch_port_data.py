@@ -32,6 +32,7 @@ from layout2img_tpu_torch.cli.preprocess_vg import main as preprocess_vg
 from layout2img_tpu_torch.data import coco, native, synthetic, vg
 from layout2img_tpu_torch.data.prefetch import device_prefetch
 from layout2img_tpu_torch.utils.logging import MetricWriter
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 W, H, N_IMAGES, SIZE = 96, 80, 6, 32
 

@@ -37,6 +37,7 @@ from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, SNEmbed
 from layout2img_tpu_torch.ops.roi import dual_scale_roi_align, roi_align
 from layout2img_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                                 vgg19_state_dict_from_jax)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 TOL = 2e-3
 CH, NC, B, O, N_VALID = 4, 10, 2, 6, 4
@@ -135,7 +136,7 @@ def test_scores_match_jax(discs, train):
     jd, variables, _, inp = discs
     port = _port_d(discs).train(train)
     args = (inp["images"], inp["boxes"], inp["labels"])
-    apply = jax.jit(lambda v, *a: jd.apply(v, *a, update_stats=train, mutable=["spectral"]))
+    apply = fast_jit(lambda v, *a: jd.apply(v, *a, update_stats=train, mutable=["spectral"]))
     want, new_state = apply(variables, *args)
     with torch.no_grad():
         got = port(_t(_nchw(inp["images"])), _t(inp["boxes"]), _t(inp["labels"]).long())

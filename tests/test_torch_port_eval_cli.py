@@ -16,6 +16,7 @@ import layout2img_tpu.eval.inception as jax_inception
 from layout2img_tpu.cli import evaluate as jax_cli
 from layout2img_tpu_torch.cli import evaluate as port_cli
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from layout2img_tpu_torch.cli import evaluate as port_cli
 from layout2img_tpu_torch.eval.inception import random_inception_state_dict
 from layout2img_tpu_torch.eval.metrics import load_feature_stats
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 
 def _run(cli, argv) -> str:

@@ -19,6 +19,7 @@ from layout2img_tpu.train.eval_hook import PeriodicEval as JaxPeriodicEval
 from layout2img_tpu_torch.eval.inception import random_inception_state_dict
 from layout2img_tpu_torch.train.eval_hook import PeriodicEval
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 B, SIZE, N_BATCHES = 2, 64, 2
 

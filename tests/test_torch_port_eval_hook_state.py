@@ -24,6 +24,7 @@ from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 from layout2img_tpu_torch.train.step import make_train_step
 from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 SIZE, B, NC = 64, 2, 10
 

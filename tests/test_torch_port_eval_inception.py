@@ -23,6 +23,7 @@ from layout2img_tpu_torch.eval.inception import (InceptionV3, load_inception,
 from layout2img_tpu_torch.eval.metrics import run_inception
 from layout2img_tpu_torch.utils.convert import inception_state_dict_from_jax
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 REL, PROB_ATOL = 1e-5, 1e-6
 

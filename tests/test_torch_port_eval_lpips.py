@@ -17,6 +17,7 @@ from layout2img_tpu_torch.eval.lpips import (ALEX_CHANNELS, ALEX_CONV_INDEX, LPI
                                              load_torch_lpips, random_lpips_state_dict)
 from layout2img_tpu_torch.utils.convert import lpips_state_dict_from_jax
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-6
 

@@ -12,6 +12,7 @@ from layout2img_tpu.eval import metrics as jm
 from layout2img_tpu_torch.eval import metrics as pm
 from layout2img_tpu_torch.eval.inception import (TRUNC_STD, load_inception,
                                                  random_inception_state_dict)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-12
 

@@ -16,6 +16,7 @@ from layout2img_tpu_torch.cli import evaluate as evaluate_cli
 from layout2img_tpu_torch.cli import sample as sample_cli
 from layout2img_tpu_torch.cli import train as train_cli
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 
 def _eval(argv) -> str:

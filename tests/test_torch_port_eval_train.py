@@ -12,6 +12,7 @@ import torch
 from layout2img_tpu_torch.cli import train as train_cli
 from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TINY = ["--dataset", "synthetic", "--img_size", "64", "--ch", "4", "--no_vgg", "--batch_size",
         "2", "--device", "cpu", "--seed", "3", "--steps", "4", "--log_every", "2"]

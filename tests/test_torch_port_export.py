@@ -24,7 +24,7 @@ from layout2img_tpu_torch.cli import export as export_cli
 from layout2img_tpu_torch.cli.presets import experiment
 from layout2img_tpu_torch.sample import latents_from_seed
 from layout2img_tpu_torch.utils.convert import init_generator
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 CH, SIZE, B, NC = 8, 64, 2, 184
 MODELS = ["lostgan", "context_app_v2"]
@@ -70,7 +70,7 @@ def test_artifact_equals_the_jax_generator(model, tmp_path_factory):
     variables = jax.tree_util.tree_map(np.asarray, import_lostgan_generator(gen.state_dict()))
     seed_t = torch.tensor([3])
     z, z_im = latents_from_seed(seed_t, B, 8)
-    want = jax.jit(lambda v, *a: jax_gen.apply(v, *a, train=False, update_stats=False))(
+    want = fast_jit(lambda v, *a: jax_gen.apply(v, *a, train=False, update_stats=False))(
         variables, z.numpy(), boxes.numpy(), labels.numpy().astype(np.int32), z_im.numpy())
     with torch.no_grad():
         got = served(boxes, labels, seed_t)

@@ -27,6 +27,7 @@ from layout2img_tpu_torch.data.synthetic import PAD_BOX, synthetic_layouts
 from layout2img_tpu_torch.models.generators import make_generator
 from layout2img_tpu_torch.sample import cast_floating, make_sample_fn
 from layout2img_tpu_torch.utils.convert import generator_state_dict_from_jax, init_generator
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TOL = 2e-3
 CH, NC, B, O, N_VALID = 4, 10, 2, 8, 5

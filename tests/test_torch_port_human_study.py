@@ -14,6 +14,7 @@ import pytest
 
 from layout2img_tpu.cli import human_study as jax_human_study
 from layout2img_tpu_torch.cli import human_study
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUDY = [{"name": "A vs B", "labels": ["A", "B"],

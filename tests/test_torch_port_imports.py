@@ -33,7 +33,8 @@ _MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export", "cli.export_tor
             "cli.sample", "cli.train", "cli.visualize",
             "data.coco", "data.native", "data.prefetch", "data.synthetic", "data.vg", "eval",
             "eval.inception", "eval.lpips", "eval.metrics", "models.convlstm", "models.layout2im",
-            "nn.builders", "nn.gcn", "nn.mask_regress", "nn.remat", "train.checkpoint",
+            "nn.builders", "nn.gcn", "nn.mask_regress", "nn.remat", "parallel.mesh",
+            "scripts.launch_multihost", "train.checkpoint",
             "train.ema", "train.eval_hook", "train.step", "train.step_bgfg",
             "train.step_layout2im", "utils.casting", "utils.logging", "utils.reference",
             "scripts.train_conditioning_check")

@@ -27,6 +27,7 @@ from layout2img_tpu_torch.ops.isla import (_bwd_smem_bytes, backward_config, blo
                                            finish_backward_plain, isla_modulate_plain, isla_norm,
                                            isla_norm_plain, launch_config,
                                            resize_bilinear_gather_backward, slot_bucket)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 

@@ -47,7 +47,7 @@ from layout2img_tpu_torch.nn.attention import MultiHeadAttention
 from layout2img_tpu_torch.ops.bbox import bbox_mask
 from layout2img_tpu_torch.ops.interp import crop_boxes, paste_boxes
 from layout2img_tpu_torch.utils.convert import _init_layout2im_, layout2im_state_dict_from_jax
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 TOL = 2e-3
 B, O, Z, NC, CD = 2, 4, 8, 12, 8
@@ -271,7 +271,7 @@ def test_convlstm_with_pad_steps_matches_jax(inputs):
     mod = JaxLayoutConvLSTM((5, 3), (3, 3))
     variables = jax.tree_util.tree_map(np.asarray, dict(mod.init(
         jax.random.PRNGKey(0), feats, inputs["valid"])))
-    want = jax.jit(mod.apply)(variables, feats, inputs["valid"])
+    want = fast_jit(mod.apply)(variables, feats, inputs["valid"])
     port = _load(LayoutConvLSTM(6, (5, 3), 3), variables, False)
     got = port(_t(np.moveaxis(feats, -1, 2)), _t(inputs["valid"]))
     _rel(got, _nchw(want), 1e-5)
@@ -302,7 +302,7 @@ def test_crop_encoder_matches_jax(inputs, small_gen):
     mod = jl.CropEncoder(NC, conv_dim=CD)
     crops = np.asarray(jax_crop_boxes(inputs["images"], inputs["boxes"], 32))
     key = jax.random.PRNGKey(3)
-    want, new = jax.jit(functools.partial(mod.apply, mutable=["batch_stats"]))(
+    want, new = fast_jit(functools.partial(mod.apply, mutable=["batch_stats"]))(
         sub, crops, inputs["labels"], inputs["valid"], key)
     eps = np.asarray(jax.random.normal(key, (B * O, Z))).reshape(B, O, Z)
     port = _load(pl.CropEncoder(NC, CD), sub, True)
@@ -357,7 +357,7 @@ def test_generator_forward_and_sample_match_jax(inputs, small_gen):
     gen, variables = small_gen
     a = inputs
     key = jax.random.PRNGKey(5)
-    want, new = jax.jit(functools.partial(gen.apply, train=True, mutable=["batch_stats"]))(
+    want, new = fast_jit(functools.partial(gen.apply, train=True, mutable=["batch_stats"]))(
         variables, a["images"], a["labels"], a["boxes"], a["masks"], a["z"], key)
     eps_real, eps_rand = (e.reshape(B, O, Z) for e in _vae_noise(key, (B * O, Z)))
     port = _load(pl.Layout2ImGenerator(NC, fusion="convlstm", conv_dim=CD), variables, True)
@@ -367,7 +367,7 @@ def test_generator_forward_and_sample_match_jax(inputs, small_gen):
     for k, v in want.items():
         _abs(got[k], _nchw(v) if np.ndim(v) >= 4 else v, what=k)
     assert _stats_match(port, variables, new, tol=1e-4) > 30
-    want_s = jax.jit(functools.partial(gen.apply, method=jl.Layout2ImGenerator.sample))(
+    want_s = fast_jit(functools.partial(gen.apply, method=jl.Layout2ImGenerator.sample))(
         variables, a["labels"], a["boxes"], a["masks"], a["z"])
     port.eval()
     got_s = port.sample(_t(a["labels"]).long(), _t(a["boxes"]), _t(a["masks"]), _t(a["z"]))

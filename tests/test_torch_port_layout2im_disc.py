@@ -24,7 +24,7 @@ from layout2img_tpu_torch.models import layout2im as pl
 from test_torch_port_layout2im import (CD, NC, _abs, _load, _nchw, _seeded, _stats_match, _t,
                                       jax_variables)
 from test_torch_port_layout2im import inputs  # noqa: F401  (fixture)
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("spectral", [True, False])
@@ -36,8 +36,8 @@ def test_discriminators_match_jax(inputs, spectral):
     vi = jax_variables(d_img, _seeded(pl.Layout2ImImageDiscriminator(CD, spectral), 6), a["images"])
     vo = jax_variables(d_obj, _seeded(pl.Layout2ImObjectDiscriminator(NC, CD, spectral), 7), crops,
                        a["labels"])
-    want_i, new_i = jax.jit(functools.partial(d_img.apply, mutable=["spectral"]))(vi, a["images"])
-    want_o, new_o = jax.jit(functools.partial(d_obj.apply, mutable=["spectral"]))(
+    want_i, new_i = fast_jit(functools.partial(d_img.apply, mutable=["spectral"]))(vi, a["images"])
+    want_o, new_o = fast_jit(functools.partial(d_obj.apply, mutable=["spectral"]))(
         vo, crops, a["labels"])
     port_i = _load(pl.Layout2ImImageDiscriminator(CD, spectral), vi, True)
     port_o = _load(pl.Layout2ImObjectDiscriminator(NC, CD, spectral), vo, True)

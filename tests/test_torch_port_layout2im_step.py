@@ -9,7 +9,10 @@ inverse of the converter), and the port's step from the same variables with the
 JAX step's z_rand and VAE noise (drawn from its key as it draws them)
 given to ``with_latents``. JAX's gradients are its Adams' first moments
 (beta1 = 0). Bars, as ``tests/test_torch_port_train.py`` sets them: losses
-2e-3; each gradient tensor's error norm within 1e-3 of its norm, and a
+2e-3; each gradient tensor's error norm within 1e-3 of its norm for D and
+3e-3 for G (the port's own f32 error there, which
+``test_step_gradient_gap_is_the_f32_error`` measures against its float64
+step), and a
 gradient whose norm is under 1e-5 of the net's largest (round-off of an
 exact zero: a bias before a batch-statistics BN) within an absolute 1e-6
 of that largest; BN running statistics (the generator's, folded by both
@@ -52,6 +55,9 @@ from test_torch_port_layout2im import inputs  # noqa: F401  (fixture)
 from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 D_CD, LR = 4, 1e-4
+# G's gradients: the port's f32 ones miss its own float64 ones by up to
+# 2.6e-3 at these weights (test_step_gradient_gap_is_the_f32_error)
+G_TOL = 3e-3
 
 
 def _tree(params, rest) -> dict:
@@ -113,22 +119,35 @@ def step_pair(inputs):
         "metrics": {k: float(v) for k, v in metrics.items()},
     }
 
-    g = pl.Layout2ImGenerator(NC, fusion="convlstm", conv_dim=CD)
-    g.load_state_dict(layout2im_state_dict_from_jax(_tree(state.g_params, state.g_state)),
-                      strict=True)
-    di = pl.Layout2ImImageDiscriminator(D_CD)
-    do = pl.Layout2ImObjectDiscriminator(NC, D_CD)
-    port = create_layout2im_state(g, di, do, Layout2ImConfig())
-    port.discriminator.load_state_dict(_disc_dict(state.d_params, state.d_state), strict=True)
     tb = {"images": _t(a["images"]).permute(0, 3, 1, 2).contiguous(),
           "labels": _t(a["labels"]).long(), "boxes": _t(a["boxes"])}
-    got = make_layout2im_train_step(port, Layout2ImConfig()).with_latents(
-        tb, _t(z_rand), _t(eps[0]), _t(eps[1]))
-    return want, port, got
+
+    def port_step(dtype: torch.dtype = torch.float32):
+        """The port's step from the JAX state's weights, its modules, images
+        and latents in ``dtype``."""
+        g = pl.Layout2ImGenerator(NC, fusion="convlstm", conv_dim=CD)
+        g.load_state_dict(layout2im_state_dict_from_jax(_tree(state.g_params, state.g_state)),
+                          strict=True)
+        di = pl.Layout2ImImageDiscriminator(D_CD)
+        do = pl.Layout2ImObjectDiscriminator(NC, D_CD)
+        di.load_state_dict({k[4:]: v for k, v in d_sd.items() if k.startswith("img.")})
+        do.load_state_dict({k[4:]: v for k, v in d_sd.items() if k.startswith("obj.")})
+        for module in (g, di, do):
+            module.to(dtype)
+        port = create_layout2im_state(g, di, do, Layout2ImConfig())
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tb.items()}
+        got = make_layout2im_train_step(port, Layout2ImConfig()).with_latents(
+            batch, *(_t(x).to(dtype) for x in (z_rand, *eps)))
+        return port, got
+
+    d_sd = _disc_dict(state.d_params, state.d_state)
+
+    port, got = port_step()
+    return want, port, got, port_step
 
 
 def test_step_losses_match_jax(step_pair):
-    want, port, got = step_pair
+    want, port, got, _ = step_pair
     assert set(got) == set(want["metrics"]) and port.step == 1
     for k, v in want["metrics"].items():
         assert abs(got[k].item() - v) <= 2e-3, (k, got[k].item(), v)
@@ -136,7 +155,7 @@ def test_step_losses_match_jax(step_pair):
 
 @pytest.mark.parametrize("net", ["generator", "discriminator"])
 def test_step_gradients_params_and_state_match_jax(step_pair, net):
-    want, port, _ = step_pair
+    want, port, _, _ = step_pair
     module = getattr(port, net)
     key = net[0]
     grads, sd = want[f"{key}_grad"], want[key]
@@ -145,7 +164,8 @@ def test_step_gradients_params_and_state_match_jax(step_pair, net):
     for name, p in params.items():
         w = grads[name].numpy()
         err, norm = np.linalg.norm(p.grad.numpy() - w), np.linalg.norm(w)
-        bar = 1e-6 * largest if norm < 1e-5 * largest else 1e-3 * norm
+        tol = G_TOL if net == "generator" else 1e-3
+        bar = 1e-6 * largest if norm < 1e-5 * largest else tol * norm
         assert err <= bar, (name, err, norm)
     beyond = total = held = 0
     for name, t in module.state_dict().items():
@@ -207,3 +227,33 @@ def test_train_step_is_a_function_of_its_rng(transformer_step):
     assert all(np.isfinite(v) for v in first.values())
     assert train_step(5) == first
     assert train_step(6)["g_loss"] != first["g_loss"]
+
+
+
+def test_step_gradient_gap_is_the_f32_error(step_pair):
+    """Why G's gradients get a 3e-3 bar: the port's step in float64 (its
+    modules, images and latents; the BN statistics and the losses stay f32,
+    as the modules compute them) gives G's gradients with most of f32's
+    round-off gone. JAX's f32 gradients agree with them to 1e-3 of each
+    tensor's norm everywhere (8e-4 seen); the port's f32 ones miss them by
+    up to 2.6e-3 at these weights (the crop encoder's mu and logvar heads
+    and BNs; 1.1e-3 in the layout encoder's attention), where JAX's f32
+    gradients miss the port's f32 ones by up to 2.8e-3: the gap is f32
+    round-off, the port's larger than JAX's, and not a difference of the
+    two steps' arithmetic."""
+    want, port, _, port_step = step_pair
+    exact, _ = port_step(torch.float64)
+    ref = {n: p.grad for n, p in exact.generator.named_parameters()}
+    largest = max(g.norm().item() for g in ref.values())
+    wide = 0
+    for name, p in port.generator.named_parameters():
+        r = ref[name]
+        norm = r.norm().item()
+        if norm < 1e-5 * largest:
+            continue
+        jax_err = (torch.from_numpy(np.asarray(want["g_grad"][name])).double() - r).norm().item()
+        assert jax_err <= 1e-3 * norm, (name, jax_err / norm)
+        own = (p.grad.double() - r).norm().item() / norm
+        assert own <= G_TOL, (name, own)
+        wide += own > 1e-3
+    assert wide > 0  # the wider bar is needed at these weights

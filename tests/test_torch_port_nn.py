@@ -30,6 +30,7 @@ from layout2img_tpu_torch.nn.attention import BoxMultiHeadedAttention
 from layout2img_tpu_torch.nn.blocks import upsample2x_nearest
 from layout2img_tpu_torch.nn.norms import InstanceNorm2d
 from layout2img_tpu_torch.utils.convert import generator_state_dict_from_jax
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-4
 CH, NC, B, O = 4, 10, 2, 8

@@ -14,6 +14,7 @@ from layout2img_tpu.ops import bbox as jbbox
 from layout2img_tpu.ops import interp as jinterp
 from layout2img_tpu.ops import relation as jrelation
 from layout2img_tpu_torch.ops import bbox, interp, relation
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

@@ -30,7 +30,7 @@ from layout2img_tpu_torch.data.synthetic import PAD_BOX
 from layout2img_tpu_torch.models import discriminators
 from layout2img_tpu_torch.models.discriminators import make_discriminator
 from layout2img_tpu_torch.utils.convert import discriminator_state_dict_from_jax, init_discriminator
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 TOL = 2e-3
 CH, NC, B, O, N_VALID = 4, 10, 2, 6, 4
@@ -107,7 +107,7 @@ def test_scores_match_jax(i, train):
     preset, over = CASES[i]
     d = make_discriminator(preset, NC, device="cpu", ch=CH, **over).train(train)
     d.load_state_dict(port.state_dict(), strict=True)
-    apply = jax.jit(lambda v, *a: jd.apply(v, *a, update_stats=train, mutable=["spectral"]))
+    apply = fast_jit(lambda v, *a: jd.apply(v, *a, update_stats=train, mutable=["spectral"]))
     want, new_state = apply(variables, inp["images"], inp["boxes"], inp["labels"])
     with torch.no_grad():
         got = d(*_port_args(inp))

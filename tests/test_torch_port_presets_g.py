@@ -38,7 +38,7 @@ from layout2img_tpu.utils.torch_import import import_lostgan_generator
 from layout2img_tpu_torch.data.synthetic import PAD_BOX
 from layout2img_tpu_torch.models.generators import _GENERATOR_PRESETS, make_generator
 from layout2img_tpu_torch.utils.convert import generator_state_dict_from_jax, init_generator
-from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 TOL = 2e-3
 LOOSE_STATE = "res4.conv_mask.0.bottleneck."  # the PSP head's bottleneck BN at 128 px
@@ -123,7 +123,7 @@ def jax_forwards(preset: str):
                     gen.apply(v, *args, train=True, update_stats=True, deterministic=True,
                               mutable=["batch_stats", "spectral"]))
 
-        out = jax.jit(both)(variables, inp["z"], inp["boxes"], inp["labels"], inp["z_im"])
+        out = fast_jit(both)(variables, inp["z"], inp["boxes"], inp["labels"], inp["z_im"])
         _FORWARDS[preset] = jax.tree_util.tree_map(np.asarray, out)
     return _FORWARDS[preset]
 

@@ -47,7 +47,7 @@ def step_pair(family: str, ch: int = 4):
         setup = make_setup(gen_preset=gen_preset, disc_preset=disc_preset, ch=ch,
                            from_port=True)
         cfg = TrainConfig(use_vgg_loss=False)
-        _CACHE[family] = (run_port(setup, cfg), run_jax(setup, cfg))
+        _CACHE[family] = (run_port(setup, cfg), run_jax(setup, cfg, fast=family != "context_part"))
     return _CACHE[family]
 
 

@@ -34,6 +34,7 @@ from layout2img_tpu_torch.models.discriminators import make_discriminator
 from layout2img_tpu_torch.models.generators import BgFgGenerator
 from layout2img_tpu_torch.train.checkpoint import CheckpointManager
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse, 1 BLAS thread)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 TINY = ["--ch", "4", "--no_vgg", "--batch_size", "2", "--device", "cpu", "--seed", "3",
         "--log_every", "1", "--save_every_epochs", "1"]

@@ -27,6 +27,7 @@ from layout2img_tpu_torch.models.layout2im import (Layout2ImGenerator,
 from layout2img_tpu_torch.train.checkpoint import CheckpointManager
 from test_torch_port_special_cli import SYNTH, TINY, _lines, _run, _steps
 from test_torch_port_eval_metrics import _eval_threads  # noqa: F401  (autouse, 1 BLAS thread)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 
 def test_layout2im_train_resume_eval_sample(tmp_path):

@@ -27,6 +27,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from layout2img_tpu_torch.ops import interp
 from layout2img_tpu_torch.ops.isla import resize_bilinear_gather_backward
 from layout2img_tpu_torch.utils.convert import init_generator
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
 
 OPS = torch.ops.layout2img_tpu_torch
 

@@ -75,6 +75,7 @@ from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
 from layout2img_tpu_torch.train.step import make_train_step
 from layout2img_tpu_torch.utils.convert import (discriminator_state_dict_from_jax,
                                                 generator_state_dict_from_jax)
+from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
 
 CH, NC, B, O = 4, 10, 2, 6
 LR = 1e-4
@@ -304,7 +305,7 @@ def _setup(b: int, seed: int = 7) -> SimpleNamespace:
     for k in [k for k in g_vars["params"] if k.startswith("alpha")]:
         g_vars["params"][k] = rng.uniform(-2, 2, g_vars["params"][k].shape).astype(np.float32)
     cfg = TrainConfig(use_vgg_loss=False)
-    step = jax.jit(lambda gv, dv, bt, z, zi: _jax_step(jgen, jdisc, gv, dv, bt, z, zi, cfg))
+    step = fast_jit(lambda gv, dv, bt, z, zi: _jax_step(jgen, jdisc, gv, dv, bt, z, zi, cfg))
     jax_out = jax.tree_util.tree_map(np.asarray, step(g_vars, d_vars, jbatch, z, z_im))
     tbatch = {k: _t(v) for k, v in batch.items()}
     tbatch["labels"] = tbatch["labels"].long()
