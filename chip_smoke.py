@@ -21,7 +21,9 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               shape the error, the kernel's and the plain version's time (L2
               flushed before each launch), the time of ``x.clone()`` (the
               floor a streaming pass over x reaches) and the least time the
-              card could take for this data.
+              card could take for this data; then both halves of the 128 px
+              norm as row windows (the 2-D mesh's spatial mode) against the
+              plain version on the same window, f32 and bf16.
 4. kernel_bwd -- the same for the ISLA backward, two kernels per call, with
               batch statistics that need a gradient: every gradient (x
               through the statistics, the source mask, gamma, beta) against
@@ -30,7 +32,9 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               calls compared bit for bit, the kernels per call counted by
               the profiler, and per shape the function's time, the main
               launch's and the finishing launch's alone, against the plain
-              backward's and the bounds.
+              backward's and the bounds; then the same two row windows (every
+              gradient against the plain window's, and the halves' parts
+              summed against the whole call's), f32 and bf16.
 5. bwd_vg  -- the ISLA backward on masks drawn as Visual Genome layouts
               give them (o=31: 3 to 30 objects, the ``__image__`` slot, pads),
               through the port's public entry points alone, so that it also
@@ -52,9 +56,8 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
 8. rate    -- sampler img/s at b=8 and b=128 and the profiler's breakdown of
               one sampler forward.
 9. train_rate -- train-step ms and img/s at b=8 and b=32 (CUDA events, after
-              warm-up) with peak memory, in f32 as ``cli/train.py`` runs it
-              and, for comparison, with TF32 in cuDNN and matmul; the
-              profiler's breakdown of one f32 train step.
+              warm-up) with peak memory, in f32 as ``cli/train.py`` runs it;
+              the profiler's breakdown of one f32 train step.
 10. train_mixed -- the mixed-precision step (bf16 compute over f32 masters)
               at full width: 5 steps at b=8 (finite losses; f32 masters that
               moved; BN statistics and SN vectors moved; 10 launches of each
@@ -86,7 +89,7 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
 12. data   -- the CLIs' main path on fixture datasets on disk, at full
               width (``context_app_v2``: ch=64, 128 px, b=8, f32, VGG on):
               prints whether PIL, h5py and the native decoder are there;
-              writes a COCO-Stuff fixture (64 JPEGs at 640x480, 6-8 objects
+              writes a COCO-Stuff fixture (32 JPEGs at 640x480, 6-8 objects
               with stuff; ``--dataset synthetic`` without PIL); trains 2
               epochs through ``cli.train.main`` (a checkpoint each, metrics
               and grids every 2 steps), resumes for a third with
@@ -99,11 +102,10 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               loads strictly); then, on a second fixture of 1024 JPEGs (16
               batches of 128 with the flips), per decoder the ms per item on
               one thread and ``HostDataLoader`` img/s at b=128 with 8 threads
-              and prefetch 4 (the CLI's default: 4 batches decoded at once)
-              and 8 (8 at once), the mixed b=128 step fed by the loader and
-              the prefetch with both loads against the same step on a
-              device-resident batch, and the card's idle share over two
-              traced loader-fed steps;
+              and prefetch 4 (the CLI's default: 4 batches decoded at once),
+              the mixed b=128 step fed by the loader and the prefetch with
+              that load against the same step on a device-resident batch,
+              and the card's idle share over two traced loader-fed steps;
               then train and resume on a Visual Genome fixture (o=31, 179
               classes) when h5py is there.
 13. eval   -- the evaluation path at full width: InceptionV3 (4 images at
@@ -169,8 +171,17 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               the one image grid). Then 2 ranks on the one card over gloo, b=4
               each, one f32 step from the saved train weights against the
               one-process step at b=8 on the same images and latents, with the
-              ``train`` phase's card bars; ms per step of each run.
-18. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+              ``train`` phase's card bars; ms per step of each run (with
+              ``mesh2d`` also selected, that gloo step runs in its launch).
+18. mesh2d -- the 2-D (data, model) mesh at the same width, 2 gloo ranks on
+              the one card as one model group, in tensor and then spatial
+              mode, one f32 step (EMA on) from the train weights at b=8
+              against the one-process step in the same launch: losses
+              within 2e-3, the gradient reports, 10 launches of each ISLA
+              kernel per rank (in spatial mode all 10 forward calls on row
+              windows), each rank's peak device memory and the parameter,
+              Adam and EMA bytes it holds beside the one process's.
+19. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -201,7 +212,8 @@ ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
-          "train_mixed", "presets", "data", "eval", "special", "export", "conditioning", "ddp")
+          "train_mixed", "presets", "data", "eval", "special", "export", "conditioning", "ddp",
+          "mesh2d")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -388,6 +400,8 @@ def kernel_phase(reps: int = 50) -> dict:
                     acc = per_forward.setdefault((dname, o, pattern), [0.0] * 6)
                     for j, v in enumerate((k_ms, p_ms, bound_ms, t_b, t_o, c_ms)):
                         acc[j] += v
+    win_abs, win_checks = forward_window_checks(g)
+    worst_abs = max(worst_abs, win_abs)
     for (dname, o, pattern), (k_ms, p_ms, bound_ms, _, _, c_ms) in per_forward.items():
         phase("kernel", f"isla_norm {dname} o={o} {pattern} per forward (b={B}, ten calls): "
               f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} copy_ms={c_ms:.5f} bound_ms={bound_ms:.5f} "
@@ -396,13 +410,119 @@ def kernel_phase(reps: int = 50) -> dict:
     bf = per_forward[("bfloat16", O, "sparse")]
     return {"name": "isla_norm", "route": "cuda", "source": ISLA_SOURCE,
             "replaces": ISLA_REPLACES, "launches": None, "max_abs_err": worst_abs,
-            "max_rel_err": worst_rel, "checks": n_checks,
+            "max_rel_err": worst_rel, "checks": n_checks, "window_checks": win_checks,
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
             "ms_bf16": bf[0], "plain_ms_bf16": bf[1], "bound_ms_bf16": bf[2],
             "copy_ms": c_ms, "copy_ms_bf16": bf[5],
             "timed_as": f"sum of the ten calls of one forward, b={B}, o={O}, sparse masks, "
                         "L2 flushed; plain = BN, resize, modulation and ReLU as separate torch ops"}
+
+
+def _window_inputs(g, dtype):
+    """The 128 px norm's inputs (b=8, c=64, o=31 sparse masks at 64 px) and
+    an output gradient."""
+    import torch
+
+    h, c, hs = ISLA_SHAPES[-1]
+    dev = torch.device("cuda")
+    x = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+    mean = 0.5 * torch.randn(c, device=dev, generator=g)
+    var = 0.5 + torch.rand(c, device=dev, generator=g)
+    mask = stage_masks(B, O, hs, "sparse", g, dtype)
+    gamma, beta = (torch.randn(B, O, c, device=dev, generator=g).to(dtype) for _ in range(2))
+    grad = torch.randn(B, c, h, h, device=dev, generator=g).to(dtype)
+    return x, mean, var, mask, gamma, beta, grad
+
+
+def forward_window_checks(g) -> tuple[float, int]:
+    """The forward kernel on row windows (the 2-D mesh's spatial mode at
+    M = 2: rows [0, 64) and [64, 128) of the 128 px norm, b=8, o=31) against
+    ``isla_norm_plain`` on the same window, at the kernel phase's bars (f32
+    1e-5, bf16 1e-2 of max|plain|), and the plain windows against the whole
+    plain call's rows. Returns (largest error, checks)."""
+    import torch
+
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_plain
+
+    worst, n = 0.0, 0
+    for dtype, rel_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x, mean, var, mask, gamma, beta, _ = _window_inputs(g, dtype)
+        h = x.shape[2]
+        whole = isla_norm_plain(x, mean, var, 1e-5, mask, gamma, beta, True).float()
+        for r0 in (0, h // 2):
+            args = (x[:, :, r0:r0 + h // 2].contiguous(), mean, var, 1e-5, mask, gamma, beta, True)
+            got = isla_norm(*args, row0=r0, full_h=h).float()
+            torch.cuda.synchronize()
+            ref = isla_norm_plain(*args, row0=r0, full_h=h).float()
+            err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+            rows = (ref - whole[:, :, r0:r0 + h // 2]).abs().max().item()
+            where = f"rows [{r0}, {r0 + h // 2}) of {h}, {str(dtype).removeprefix('torch.')}"
+            need(torch.isfinite(got).all().item() and err <= rel_tol * scale,
+                 f"ISLA kernel off on the row window {where}: {err} > {rel_tol} * {scale}")
+            need(rows <= 1e-6 * scale, f"plain ISLA window {where} is not the whole call's rows: "
+                                       f"{rows}")
+            phase("kernel", f"isla_norm row window {where} (b={B} o={O}): max_abs_err={err:.3e} "
+                            f"(bar {rel_tol:g}*{scale:.3g}); plain window vs whole rows {rows:.1e}")
+            worst, n = max(worst, err), n + 1
+    return worst, n
+
+
+def backward_window_checks(g) -> tuple[float, int]:
+    """The backward's two kernels on the same row windows: every gradient
+    (the window's batch statistics) against autograd of the plain version on
+    the window, at the backward phase's bars (f32 1e-4, bf16 2e-2 of
+    max|plain|); and at shared statistics, the halves' dmask_src, dgamma and
+    dbeta parts summed against the whole call's (f32 1e-5, bf16 2e-2).
+    Returns (largest error, checks)."""
+    import functools
+
+    import torch
+
+    from layout2img_tpu_torch.ops.isla import isla_norm, isla_norm_backward, isla_norm_plain
+
+    worst, n = 0.0, 0
+    for dtype, rel_tol, sum_tol in ((torch.float32, 1e-4, 1e-5), (torch.bfloat16, 2e-2, 2e-2)):
+        dname = str(dtype).removeprefix("torch.")
+        x, mean, var, mask, gamma, beta, grad = _window_inputs(g, dtype)
+        h, half = x.shape[2], x.shape[2] // 2
+        whole = isla_norm_backward(x, mean, var, 1e-5, mask, gamma, beta, grad)  # no ReLU ties
+        parts = []
+        for r0 in (0, half):
+            xw, gw = (t[:, :, r0:r0 + half].contiguous() for t in (x, grad))
+            gw, ties = _off_gate_ties(xw, mask, gamma, beta, gw, row0=r0, full_h=h)
+            window = dict(row0=r0, full_h=h)
+            got = _isla_grads(functools.partial(isla_norm, **window), xw, mask, gamma, beta, gw,
+                              True)
+            torch.cuda.synchronize()
+            want = _isla_grads(functools.partial(isla_norm_plain, **window),
+                               *(t.float() for t in (xw, mask, gamma, beta, gw)), True)
+            errs = []
+            for name, a, w in zip(("x", "mask_src", "gamma", "beta"), got, want):
+                err, scale = (a.float() - w).abs().max().item(), w.abs().max().item()
+                need(torch.isfinite(a.float()).all().item() and err <= rel_tol * scale,
+                     f"ISLA backward off in d{name} on rows [{r0}, {r0 + half}) of {h} {dname}: "
+                     f"{err} > {rel_tol} * {scale}")
+                errs.append(f"d{name} {err / scale:.1e}")
+                worst = max(worst, err)
+            n += 1
+            phase("kernel", f"isla_norm_bwd row window [{r0}, {r0 + half}) of {h} {dname} "
+                            f"(b={B} o={O}, {ties} gate ties): rel_err {', '.join(errs)} "
+                            f"(bar {rel_tol:g})")
+            parts.append(isla_norm_backward(xw, mean, var, 1e-5, mask, gamma, beta,
+                                            grad[:, :, r0:r0 + half].contiguous(), **window))
+        sums = [torch.cat([p[0] for p in parts], dim=2)] + [
+            sum(p[i].float() for p in parts) for i in range(1, 6)]
+        errs = []
+        for name, a, w in zip(("dx", "dmean", "dvar", "dmask", "dgamma", "dbeta"), sums, whole):
+            err, scale = (a.float() - w.float()).abs().max().item(), w.float().abs().max().item()
+            need(err <= sum_tol * scale, f"ISLA backward halves do not sum to the whole call in "
+                                         f"{name} ({dname}): {err} > {sum_tol} * {scale}")
+            errs.append(f"{name} {err / scale:.1e}")
+        n += 1
+        phase("kernel", f"isla_norm_bwd halves [0, {half}) + [{half}, {h}) against the whole call, "
+                        f"{dname}: rel_err {', '.join(errs)} (bar {sum_tol:g})")
+    return worst, n
 
 
 def _isla_grads(norm, x, mask, gamma, beta, grad, relu):
@@ -417,7 +537,7 @@ def _isla_grads(norm, x, mask, gamma, beta, grad, relu):
     return torch.autograd.grad(out, leaves, grad)
 
 
-def _off_gate_ties(x, mask, gamma, beta, grad):
+def _off_gate_ties(x, mask, gamma, beta, grad, row0=0, full_h=None):
     """The output gradient, zeroed where the pre-ReLU output is within 1e-5
     of its max|.| of zero: there the kernel's recomputed output and the
     oracle's may fall on opposite sides of the ReLU's gate."""
@@ -425,7 +545,7 @@ def _off_gate_ties(x, mask, gamma, beta, grad):
     from layout2img_tpu_torch.ops.isla import isla_norm_plain
 
     pre = isla_norm_plain(x.float(), *batch_stats(x), 1e-5, mask.float(), gamma.float(),
-                          beta.float())
+                          beta.float(), row0=row0, full_h=full_h)
     ties = pre.abs() <= 1e-5 * pre.abs().max()
     return grad.masked_fill(ties, 0), int(ties.sum())
 
@@ -564,6 +684,8 @@ def kernel_bwd_phase(reps: int = 50) -> tuple[dict, dict]:
               f"ms={w_ms:.5f} launch_ms={k_ms:.5f} finish_ms={f_ms:.5f} plain_ms={p_ms:.5f} "
               f"bound_ms={bound_ms:.5f} share_of_bound={bound_ms / w_ms:.3f} "
               f"finish_bound_ms={f_bound:.5f}")
+    win_abs, win_checks = backward_window_checks(g)
+    worst_abs = max(worst_abs, win_abs)
     # the kernels one call runs, from the profiler, at each shape in f32 and bf16 (o=31, sparse)
     calls, labels = [], []
     for dtype in (torch.float32, torch.bfloat16):
@@ -592,7 +714,7 @@ def kernel_bwd_phase(reps: int = 50) -> tuple[dict, dict]:
     timed_as = f"sum of the ten calls of one forward's backward, b={B}, o={O}, sparse masks, L2 flushed"
     bwd = {"name": "isla_norm_bwd", "route": "cuda", "source": ISLA_BWD_SOURCE,
            "replaces": ISLA_BWD_REPLACES, "launches": None, "max_abs_err": worst_abs,
-           "max_rel_err": worst_rel, "checks": n_checks,
+           "max_rel_err": worst_rel, "checks": n_checks, "window_checks": win_checks,
            "ms": w_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
            "bound_by": "bytes" if t_b >= t_o else "operations", "library_ms": None,
            "launch_ms": k_ms, "finish_ms": f_ms, "ms_bf16": bf[0], "launch_ms_bf16": bf[1],
@@ -853,9 +975,10 @@ def _train_batch(rng, b: int, dev) -> dict:
 
 
 def _trainer(paths: dict, dev, seed: int, deterministic: bool = False, config=None,
-             remat_blocks: int = 0):
+             remat_blocks: int = 0, shard_mesh=None):
     """(state, train_step) from the saved G and D, with the seeded VGG loss;
-    ``config`` is a ``TrainConfig`` (default: the f32 step)."""
+    ``config`` is a ``TrainConfig`` (default: the f32 step); a tensor-mode
+    ``shard_mesh`` cuts G and D to this rank's shards first."""
     import torch
 
     from layout2img_tpu_torch.cli.sample import load_generator
@@ -869,6 +992,11 @@ def _trainer(paths: dict, dev, seed: int, deterministic: bool = False, config=No
     gen = load_generator(paths["G"], dev)
     disc = make_discriminator("d128_app", NUM_CLASSES, device=dev, ch=CH, remat_blocks=remat_blocks)
     disc.load_state_dict(torch.load(paths["D"], map_location="cpu", weights_only=True), strict=True)
+    if shard_mesh is not None and shard_mesh.mode == "tensor":
+        from layout2img_tpu_torch.parallel.mesh import shard_parameters
+
+        shard_parameters(gen, shard_mesh)
+        shard_parameters(disc, shard_mesh)
     state = create_train_state(gen, disc, config)
     vgg = VGGLoss(init_vgg(seed + 2, device=dev))
     return state, make_train_step(state, config, vgg_loss=vgg, deterministic=deterministic)
@@ -1055,32 +1183,28 @@ def train_phase(seed: int, tmp_dir: str, dev) -> tuple[tuple[int, int, int], dic
 
 
 def train_rate_phase(seed: int, card: str, paths: dict) -> tuple[float | None, ...]:
-    """Train-step rates at b=8 and b=32, in f32 (as ``cli/train.py`` runs
-    it) and with TF32 in cuDNN and matmul, then a profiled f32 b=8 step;
-    returns the device ms of the ISLA forward kernel and of the backward's
-    main and finishing kernels in that step."""
+    """Train-step rates at b=8 and b=32 in f32 (as ``cli/train.py`` runs it),
+    then a profiled f32 b=8 step; returns the device ms of the ISLA forward
+    kernel and of the backward's main and finishing kernels in that step."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
     for b, reps in ((8, 10), (32, 5)):
-        for tag, tf32 in (("f32", False), ("f32+tf32", True)):
-            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
-            state, step = _trainer(paths, dev, seed)
-            batch = _train_batch(np.random.default_rng(seed), b, dev)
-            rng = torch.Generator(device=dev).manual_seed(seed)
-            for _ in range(3):
-                step(batch, rng)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms, lo, hi = time_ms(lambda: step(batch, rng), reps)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            phase("rate", f"train step {tag} b={b} o={O}: {ms:.3f} ms/step [{lo:.3f}, {hi:.3f}] over "
-                  f"{reps} steps, {1e3 * b / ms:.1f} img/s, peak {peak:.2f} GiB allocated on {card}")
-            del state, step
-            torch.cuda.empty_cache()
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        state, step = _trainer(paths, dev, seed)
+        batch = _train_batch(np.random.default_rng(seed), b, dev)
+        rng = torch.Generator(device=dev).manual_seed(seed)
+        for _ in range(3):
+            step(batch, rng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, lo, hi = time_ms(lambda: step(batch, rng), reps)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        phase("rate", f"train step f32 b={b} o={O}: {ms:.3f} ms/step [{lo:.3f}, {hi:.3f}] over "
+              f"{reps} steps, {1e3 * b / ms:.1f} img/s, peak {peak:.2f} GiB allocated on {card}")
+        del state, step
+        torch.cuda.empty_cache()
 
     state, step = _trainer(paths, dev, seed)
     batch = _train_batch(np.random.default_rng(seed), B, dev)
@@ -1270,8 +1394,8 @@ def capture_isla_calls(built) -> list[dict]:
 
     real, calls = norms.isla_norm, []
 
-    def keep(x, mean, var, eps, mask, gamma, beta, relu=False):
-        out = real(x, mean, var, eps, mask, gamma, beta, relu=relu)
+    def keep(x, mean, var, eps, mask, gamma, beta, relu=False, **window):  # one process: whole rows
+        out = real(x, mean, var, eps, mask, gamma, beta, relu=relu, **window)
         rec = {"args": tuple(t.detach() for t in (x, mean, var)) + (eps,)
                + tuple(t.detach() for t in (mask, gamma, beta)), "relu": relu}
         if out.requires_grad:
@@ -1570,7 +1694,7 @@ def presets_phase(seed: int, tmp_dir: str, dev, card: str, reps: int) -> dict:
 
 
 # the data phase: the CLI's main path on fixture datasets written to disk
-DATA_IMAGES, DATA_B, DATA_VG_IMAGES = 64, 8, 32
+DATA_IMAGES, DATA_B, DATA_VG_IMAGES = 32, 8, 32
 # the host path's timing: 1024 JPEGs and their flips, 16 batches of the bench's b=128
 DATA_RATE_IMAGES, DATA_RATE_B = 1024, 128
 
@@ -1730,7 +1854,7 @@ def _loader_rate(ds, card: str, decoder: str, threads: int, prefetch: int) -> fl
 
 
 def _fed_vs_resident(ds, decoder: str, dev, card: str,
-                     loads: tuple[tuple[int, int], ...] = ((8, 4), (8, 8))) -> None:
+                     loads: tuple[tuple[int, int], ...] = ((8, 4),)) -> None:
     """The mixed b=128 step (the bench's default cell) fed by HostDataLoader
     through the prefetch, for each (threads, prefetch) of ``loads``, against
     the same step on one device-resident batch before and after: ms per step
@@ -1920,8 +2044,7 @@ def data_phase(seed: int, tmp_dir: str, dev, card: str) -> tuple[int, int, int]:
                                    left_right_flip=True, use_native=use_native)
             phase("data", f"decoder {decoder}: {_per_item_ms(ds):.3f} ms per item on one thread "
                   "(decode, resize, flip, normalize; host clock)")
-            for threads, prefetch in ((8, 4), (8, 8)):
-                _loader_rate(ds, card, decoder, threads, prefetch)
+            _loader_rate(ds, card, decoder, 8, 4)
             decoded.append((ds, decoder))
         _fed_vs_resident(*decoded[0], dev=dev, card=card)  # the decoder the CLI takes
         del decoded, ds
@@ -2844,14 +2967,24 @@ def _ddp_inputs(seed: int):
 
 
 def _ddp_rank_step(paths: dict, seed: int) -> tuple[dict, int]:
-    """One rank of the gloo run: the saved train weights, one f32 step without
-    dropout on this rank's rows of ``_ddp_inputs``, its ISLA launches, then 3
-    timed steps; the state checked bit-equal across the ranks."""
+    """One rank of the gloo run (``_ddp_gloo_step`` in a process group of its own)."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize(backend="gloo")
+    out = _ddp_gloo_step(mesh, paths, seed)
+    data_mesh.shutdown()
+    return out, mesh.rank
+
+
+def _ddp_gloo_step(mesh, paths: dict, seed: int) -> dict:
+    """One rank of the gloo run on the 1-D mesh ``mesh``: the saved train
+    weights, one f32 step without dropout on this rank's rows of
+    ``_ddp_inputs``, its ISLA launches, then 3 timed steps; the state checked
+    bit-equal across the ranks."""
     import torch
 
     from layout2img_tpu_torch.parallel import mesh as data_mesh
 
-    mesh = data_mesh.initialize(backend="gloo")
     dev = mesh.device
     batch, z, z_im = _ddp_inputs(seed)
     state, step = _trainer(paths, dev, seed, deterministic=True)
@@ -2871,16 +3004,119 @@ def _ddp_rank_step(paths: dict, seed: int) -> tuple[dict, int]:
         sync_all()
         times.append(1e3 * (time.perf_counter() - t0))
     data_mesh.check_replicated(mesh, state)
-    data_mesh.shutdown()
     return {"metrics": {k: v.item() for k, v in metrics.items()}, "counts": counts, "ms": times,
-            "grads": grads, "world": mesh.world}, mesh.rank
+            "grads": grads, "world": mesh.world}
+
+
+def _held_bytes(state) -> dict[str, int]:
+    """Bytes of the parameters, the Adam moments and the EMA this process holds."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    nets = (state.generator, state.discriminator)
+    adam = [t for opt in (state.g_opt, state.d_opt) for st in opt.state.values()
+            for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")]
+    return {"params": nbytes(p for net in nets for p in net.parameters()), "adam": nbytes(adam),
+            "ema": nbytes((state.ema or {}).values())}
+
+
+def _mesh2d_step(paths: dict, seed: int, dev, mesh) -> dict:
+    """One f32 step of the ddp phase's global batch (b=8) from the train
+    weights, EMA on, dropout off, deterministic cuDNN, on ``mesh`` (one
+    process, or a 2-D mesh: tensor mode cuts G and D first): its losses,
+    the gradients gathered whole, the ISLA launches, the norm calls on a row
+    window, the peak of allocated device memory over building and stepping,
+    the bytes G's forward leaves allocated for its backward (allocated at its
+    output less before the step), the bytes held, and one more step's ms."""
+    import gc
+
+    import torch
+
+    from layout2img_tpu_torch.nn import norms
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.train.checkpoint import whole_tensors
+    from layout2img_tpu_torch.train.state import TrainConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch, z, z_im = _ddp_inputs(seed)
+    with data_mesh.use(mesh), _deterministic_cudnn():
+        state, step = _trainer(paths, dev, seed, deterministic=True,
+                               config=TrainConfig(ema_decay=0.999), shard_mesh=mesh)
+        real, windowed = norms.isla_norm, []
+
+        def spy(x, *args, row0=0, full_h=None, **kwargs):
+            windowed.append(full_h not in (None, x.shape[-2]))
+            return real(x, *args, row0=row0, full_h=full_h, **kwargs)
+
+        norms.isla_norm = spy
+        g_saved = []
+        hook = state.generator.register_forward_hook(
+            lambda module, args, out: g_saved.append(torch.cuda.memory_allocated(dev)))
+        _reset_isla_counts()
+        before = torch.cuda.memory_allocated(dev)
+        try:
+            metrics = step.with_latents({k: mesh.rows(v).to(dev) for k, v in batch.items()},
+                                        mesh.rows(z).to(dev), mesh.rows(z_im).to(dev))
+            sync_all()
+        finally:
+            norms.isla_norm = real
+            hook.remove()
+        counts = _isla_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads = {}
+        for name, net in (("G", state.generator), ("D", state.discriminator)):
+            dims = data_mesh.shard_dims(net)
+            grads[name] = {k: v.cpu() for k, v in whole_tensors(
+                {k: p.grad.detach() for k, p in net.named_parameters()}, dims).items()}
+        sync_all()
+        t0 = time.perf_counter()
+        step({k: mesh.rows(v).to(dev) for k, v in batch.items()},
+             torch.Generator(device=dev).manual_seed(seed))
+        sync_all()
+        ms = 1e3 * (time.perf_counter() - t0)
+        data_mesh.check_replicated(mesh, state)
+    return {"metrics": {k: v.item() for k, v in metrics.items()}, "counts": counts,
+            "windowed": sum(windowed), "calls": len(windowed), "peak": peak,
+            "g_saved": g_saved[0] - before,
+            "held": _held_bytes(state), "grads": grads, "ms": ms}
+
+
+def _mesh2d_ranks(paths: dict, seed: int, with_ddp: bool) -> tuple[dict, int]:
+    """The mesh2d phase's torchrun program (2 gloo ranks on the one card):
+    with ``with_ddp``, first the ddp phase's gloo step (``_ddp_gloo_step``,
+    so that both phases share one launch); then rank 0 runs the one-process
+    step (rank 1 waits), then both run it on the 1 x 2 mesh in tensor mode
+    and then in spatial mode. Returns rank 0's results with every rank's
+    peak memory and bytes held per mode."""
+    import torch.distributed as dist
+
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize(backend="gloo")
+    out = {"ddp": _ddp_gloo_step(mesh, paths, seed)} if with_ddp else {}
+    if mesh.rank == 0:
+        out["one"] = _mesh2d_step(paths, seed, mesh.device, data_mesh.world(mesh.device))
+    mesh.barrier()
+    for mode in ("tensor", "spatial"):
+        with data_mesh.use(mesh):
+            out[mode] = _mesh2d_step(paths, seed, mesh.device,
+                                     data_mesh.make_mesh_2d(mesh, 2, mode))
+        everyone: list = [None] * mesh.world
+        dist.all_gather_object(everyone, {k: out[mode][k] for k in ("peak", "held", "counts",
+                                                                    "windowed", "g_saved")})
+        out[mode]["ranks"] = everyone
+    data_mesh.shutdown()
+    return out, mesh.rank
 
 
 def ddp_child(argv: list[str]) -> int:
-    """A process of the ddp phase, alone or under torchrun:
+    """A process of the ddp and mesh2d phases, alone or under torchrun:
     ``cli OUT ARGS...`` runs ``cli.train`` on ARGS with deterministic cuDNN;
-    ``step OUT PATHS_JSON SEED`` runs ``_ddp_rank_step``. Rank 0 writes what
-    it found (ISLA launches, step ms, ...) to OUT with ``torch.save``."""
+    ``step OUT PATHS_JSON SEED`` runs ``_ddp_rank_step``; ``mesh2d OUT
+    PATHS_JSON SEED [ddp]`` runs ``_mesh2d_ranks``. Rank 0 writes what it
+    found (ISLA launches, step ms, ...) to OUT with ``torch.save``."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -2892,6 +3128,8 @@ def ddp_child(argv: list[str]) -> int:
         with _deterministic_cudnn(), _timed_train_steps() as times:
             train_cli.main(argv[2:])
         result, rank = {"counts": _isla_counts(), "ms": times}, int(os.environ.get("RANK", 0))
+    elif mode == "mesh2d":
+        result, rank = _mesh2d_ranks(json.loads(argv[2]), int(argv[3]), argv[4:] == ["ddp"])
     else:
         result, rank = _ddp_rank_step(json.loads(argv[2]), int(argv[3]))
     if rank == 0:
@@ -2899,7 +3137,7 @@ def ddp_child(argv: list[str]) -> int:
     return 0
 
 
-def _torchrun(nproc: int, args: list[str], what: str) -> None:
+def _torchrun(nproc: int, args: list[str], what: str, tag: str = "ddp") -> None:
     """``torchrun --standalone --nproc_per_node=nproc chip_smoke.py --ddp_child ARGS``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", DDP_ENTRY, "--ddp_child", *args]
@@ -2907,17 +3145,19 @@ def _torchrun(nproc: int, args: list[str], what: str) -> None:
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=400)
     need(out.returncode == 0, f"{what}: torchrun exited {out.returncode}: "
                               f"{(out.stdout + out.stderr)[-3000:]}")
-    phase("ddp", f"{what}: torchrun --nproc_per_node={nproc} exit 0 in "
-                 f"{time.perf_counter() - t0:.1f}s")
+    phase(tag, f"{what}: torchrun --nproc_per_node={nproc} exit 0 in "
+               f"{time.perf_counter() - t0:.1f}s")
 
 
 def _median(xs: list[float]) -> float:
     return sorted(xs)[len(xs) // 2]
 
 
-def ddp_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None) -> tuple[int, int, int]:
+def ddp_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None,
+              gloo: bool = True) -> tuple[int, int, int]:
     """Data parallelism at full width; returns the ISLA launches of the
-    NCCL run and of rank 0's step in the gloo run."""
+    NCCL run and (``gloo``) of rank 0's step in the gloo run, which
+    otherwise runs in the mesh2d phase's launch (``ddp_gloo_checks``)."""
     import shutil
 
     import torch
@@ -2966,12 +3206,26 @@ def ddp_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None) -> tu
                  f"ISLA forward x{want[0]}, backward x{want[1]}, finishing x{want[2]} in each run "
                  "(10 of each a step, 10 forward for the grid)")
 
+    if not gloo:
+        phase("ddp", "2 ranks on one card over gloo: in the mesh2d phase's launch")
+        phase("ddp", f"{time.perf_counter() - t_phase:.1f}s")
+        return tuple(nccl["counts"])
     # 2 ranks on the one card over gloo, against the one-process step at b=8
     batch, z, z_im = _ddp_inputs(seed)
     m_one, g_one, _ = _step_grads(paths, dev, seed, batch, z, z_im)
     out = os.path.join(tmp_dir, "ddp_gloo.pt")
     _torchrun(2, ["step", out, json.dumps(paths), str(seed)], "2 ranks on one card, gloo")
     gloo = torch.load(out, weights_only=False)
+    ms = {"one process": _median(one_ms[1:]), "NCCL, 1 rank": _median(nccl["ms"][1:])}
+    ddp_gloo_checks(gloo, m_one, g_one, ms, card)
+    phase("ddp", f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(a + b for a, b in zip(nccl["counts"], gloo["counts"]))
+
+
+def ddp_gloo_checks(gloo: dict, m_one: dict, g_one: dict, ms: dict, card: str) -> None:
+    """The gloo run (rank 0's result) against the one-process step: ISLA
+    launches, losses within 2e-3, the gradient reports; the median step ms
+    beside ``ms``."""
     need(tuple(gloo["counts"]) == (10, 10, 10),
          f"ddp gloo rank 0: ISLA launches {gloo['counts']} in its step, not (10, 10, 10)")
     worst = max(abs(gloo["metrics"][k] - m_one[k]) for k in m_one)
@@ -2980,12 +3234,80 @@ def ddp_phase(seed: int, tmp_dir: str, dev, card: str, paths: dict | None) -> tu
                  f"within {worst:.3e} (bar 2e-3); every rank's state bit-equal after the steps")
     phase("ddp", _grad_report("D", gloo["grads"]["D"], g_one["D"], B))
     phase("ddp", _grad_report("G", gloo["grads"]["G"], g_one["G"], B))
-    ms = {"one process": _median(one_ms[1:]), "NCCL, 1 rank": _median(nccl["ms"][1:]),
-          "gloo, 2 ranks on one card (a check of correctness, not a speed)": _median(gloo["ms"])}
+    ms = {**ms, "gloo, 2 ranks on one card (a check of correctness, not a speed)":
+          _median(gloo["ms"])}
     phase("ddp", f"f32 step at global b={B}, median ms: "
           + "; ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" | {card}")
-    phase("ddp", f"{time.perf_counter() - t_phase:.1f}s")
-    return tuple(a + b for a, b in zip(nccl["counts"], gloo["counts"]))
+
+
+def mesh2d_phase(seed: int, tmp_dir: str, card: str, paths: dict | None,
+                 with_ddp: bool = False) -> tuple[tuple[int, int, int], tuple[int, int, int]]:
+    """The 2-D mesh at full width (``ours_d_context128`` + ``d128_app``, ch=64,
+    128 px, the train phase's f32 step and weights, global b=8): 2 gloo
+    ranks sharing the one card as one model group (M = 2), tensor mode and
+    then spatial mode in one torchrun launch, each against the one-process
+    step of the same launch: losses within 2e-3 (the ddp phase's bar), the
+    gradient reports, ISLA launches (10, 10, 10) per rank, the norm calls on
+    row windows (all 10 in spatial mode, none in tensor mode), and every
+    rank's peak device memory and parameter, Adam and EMA bytes beside the
+    one process's. With ``with_ddp`` the launch first runs the ddp phase's
+    gloo step, checked against the same one-process step
+    (``ddp_gloo_checks``). Returns rank 0's ISLA launches of both modes and
+    of the gloo step (zeros without it)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    paths = paths or save_train_weights(seed, tmp_dir)
+    out = os.path.join(tmp_dir, "mesh2d.pt")
+    _torchrun(2, ["mesh2d", out, json.dumps(paths), str(seed)] + (["ddp"] if with_ddp else []),
+              "1 x 2 mesh, tensor then spatial mode, 2 ranks on one card, gloo", tag="mesh2d")
+    res = torch.load(out, weights_only=False)
+    one = res["one"]
+    ddp_counts = (0, 0, 0)
+    if with_ddp:
+        ddp_gloo_checks(res["ddp"], one["metrics"], one["grads"], {"one process": one["ms"]},
+                        card)
+        ddp_counts = tuple(res["ddp"]["counts"])
+    mib = 2.0 ** -20
+    phase("mesh2d", f"one process: peak {one['peak'] * mib:.1f} MiB, G's forward leaves "
+                    f"{one['g_saved'] * mib:.1f} MiB for its backward; holds params "
+                    f"{one['held']['params'] * mib:.2f} MiB, Adam {one['held']['adam'] * mib:.2f} "
+                    f"MiB, EMA {one['held']['ema'] * mib:.2f} MiB | {card}")
+    launches = [0, 0, 0]
+    for mode in ("tensor", "spatial"):
+        got = res[mode]
+        for r, rank in enumerate(got["ranks"]):
+            need(tuple(rank["counts"]) == (10, 10, 10),
+                 f"mesh2d {mode} rank {r}: ISLA launches {rank['counts']}, not (10, 10, 10)")
+            want_windowed = 10 if mode == "spatial" else 0
+            need(rank["windowed"] == want_windowed,
+                 f"mesh2d {mode} rank {r}: {rank['windowed']} norm calls on row windows, not "
+                 f"{want_windowed}")
+        worst = max(abs(got["metrics"][k] - one["metrics"][k]) for k in one["metrics"])
+        need(worst <= 2e-3, f"mesh2d {mode}: losses differ from the one-process step by {worst} "
+                            "> 2e-3")
+        phase("mesh2d", f"{mode} mode, 1 x 2 (gloo, one card) against one process at b={B}: "
+                        f"losses within {worst:.3e} (bar 2e-3); ISLA launches (10, 10, 10) on each "
+                        f"rank, {got['ranks'][0]['windowed']} of the 10 forward calls on a row "
+                        "window; whole tensors bit-equal on both ranks")
+        phase("mesh2d", f"{mode}: " + _grad_report("D", got["grads"]["D"], one["grads"]["D"], B))
+        phase("mesh2d", f"{mode}: " + _grad_report("G", got["grads"]["G"], one["grads"]["G"], B))
+        for r, rank in enumerate(got["ranks"]):
+            held = rank["held"]
+            phase("mesh2d", f"{mode} rank {r}: peak {rank['peak'] * mib:.1f} MiB "
+                            f"({rank['peak'] / one['peak']:.3f} of one process), G's forward "
+                            f"leaves {rank['g_saved'] * mib:.1f} MiB "
+                            f"({rank['g_saved'] / one['g_saved']:.3f}); holds params "
+                            f"{held['params'] * mib:.2f} MiB, Adam {held['adam'] * mib:.2f} MiB, "
+                            f"EMA {held['ema'] * mib:.2f} MiB "
+                            f"({sum(held.values()) / sum(one['held'].values()):.3f} of one "
+                            f"process) | {card}")
+        phase("mesh2d", f"{mode}: a second step at global b={B}: {got['ms']:.1f} ms (2 ranks "
+                        f"sharing one card over gloo: a check of correctness, not a speed; one "
+                        f"process {one['ms']:.1f} ms) | {card}")
+        launches = [a + b for a, b in zip(launches, got["counts"])]
+    phase("mesh2d", f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(launches), ddp_counts
 
 
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
@@ -3146,12 +3468,23 @@ def main(argv=None) -> int:
                        bound_ms_bf16_conditioning=f_bound)
             bwd.update(ms_bf16_conditioning=b_ms, plain_ms_bf16_conditioning=pb_ms,
                        bound_ms_bf16_conditioning=b_bound)
+        shared = "ddp" in phases and "mesh2d" in phases  # the 2 gloo ranks: one launch
         if "ddp" in phases:
             begin("ddp")
-            counts = ddp_phase(args.seed, tmp_dir, dev, card, paths if "train" in phases else None)
+            counts = ddp_phase(args.seed, tmp_dir, dev, card, paths if "train" in phases else None,
+                               gloo=not shared)
             for row, n in zip((fwd, bwd, fin), counts):
                 row["launches_ddp"] = n
-                row["launches"] = row.get("launches", 0) + n
+                row["launches"] = (row.get("launches") or 0) + n
+        if "mesh2d" in phases:
+            begin("mesh2d")
+            counts, gloo = mesh2d_phase(args.seed, tmp_dir, card,
+                                        paths if "train" in phases else None, with_ddp=shared)
+            for row, n, g in zip((fwd, bwd, fin), counts, gloo):
+                row["launches_mesh2d"] = n
+                row["launches"] = (row.get("launches") or 0) + n + g
+                if shared:
+                    row["launches_ddp"] += g
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

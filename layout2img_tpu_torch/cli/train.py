@@ -67,8 +67,23 @@ guard's verdict is taken over every rank's metrics (the metrics are the
 ranks' mean), so all ranks stop together; SIGTERM flags are OR-reduced
 every ``--preempt_sync_every`` steps (default 25) and every rank breaks on the
 reduced flag. ``--async_ckpt`` stays one-process only, as in the JAX CLI.
-``--model_parallel`` and ``--mp_mode`` (the 2-D mesh) raise
-``NotImplementedError`` naming their ROADMAP item.
+
+The 2-D mesh (``--model_parallel M --mp_mode tensor|spatial``, JAX's flags;
+``parallel/mesh.py::make_mesh_2d``), for the LostGAN trainer on one node:
+
+    torchrun --nproc_per_node=N -m layout2img_tpu_torch.cli.train --model_parallel M \\
+        --mp_mode spatial --batch_size 8 ...
+
+M adjacent ranks form a model group; N must divide by M. ``--batch_size``
+is per model group, so the global batch is ``batch_size * N / M``; every
+rank of a group loads the same examples (``HostDataLoader(process_id=``
+its data group``)``). ``tensor`` holds 1/M of every conv, dense and
+embedding weight whose output features divide by M, with its Adam moments
+and EMA, on each rank; ``spatial`` cuts the images and G's and D's
+activations into M shards of rows. Checkpoints, ``G.pth``/``D.pth`` and
+``G_ema.pth`` hold whole tensors (a 2-D checkpoint resumes in one process
+and the other way round). The special families ignore both flags, as in the
+JAX CLI, and say so in the log.
 
 The special families (``layout2img_tpu/cli/train.py::main_special``), 64 px
 only, through the same loop (resume, saves, SIGTERM, NaN guard and drill,
@@ -105,7 +120,6 @@ import torch
 from layout2img_tpu_torch.cli.presets import EXPERIMENTS, dataset_spec, experiment
 
 SYNTHETIC_CLASSES, SYNTHETIC_OBJECTS = dataset_spec("synthetic")
-_ROADMAP = "ROADMAP.md §1 'Slices still to port', item"
 logger = logging.getLogger(__name__)
 
 
@@ -186,21 +200,13 @@ def parse_args(argv=None):
                    help="under a launcher: steps between OR-reductions of the ranks' SIGTERM "
                         "flags (each one syncs the host with the card; the grace period must "
                         "cover N steps and a save)")
-    # later slices: set, they raise
-    p.add_argument("--model_parallel", type=int, default=1, help="not ported (ROADMAP §1 item 6)")
-    p.add_argument("--mp_mode", default=None, help="not ported (ROADMAP §1 item 6)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="ranks per model group on a (data, model) mesh; 1 = data parallel only")
+    p.add_argument("--mp_mode", default="tensor", choices=["tensor", "spatial"],
+                   help="model-axis sharding: 'tensor' shards the weights' output features and "
+                        "their Adam moments; 'spatial' shards the image rows")
     p.add_argument("--device", default=None, help="default cuda; 'cpu' must be asked for")
     return p.parse_args(argv)
-
-
-def refuse_later_slices(args) -> None:
-    """``NotImplementedError`` naming the ROADMAP item of a set flag that a
-    later slice ports."""
-    later = ((6, "--model_parallel", args.model_parallel != 1),
-             (6, "--mp_mode", args.mp_mode is not None))
-    for item, flag, given in later:
-        if given:
-            raise NotImplementedError(f"{flag} is not ported yet: {_ROADMAP} {item}")
 
 
 def check_img_size(args, exp) -> None:
@@ -222,16 +228,17 @@ def build_dataset(args, num_objects: int, eval_mode: bool = False, fg_bg: bool =
     ``SyntheticLayoutDataset``. ``eval_mode``: no flip doubling, no
     shuffle, the tail batch kept (the reference's test protocol). ``fg_bg``:
     COCO items carry the Ours-ED streams. Each data-parallel rank loads its
-    own shard of every global batch (``--batch_size`` is per process); the
-    synthetic dataset is seeded ``seed + rank``."""
+    own shard of every global batch (``--batch_size`` is per process; on the
+    2-D mesh per model group, whose ranks load the same shard); the
+    synthetic dataset is seeded ``seed +`` the shard's index."""
     from layout2img_tpu_torch.data.coco import CocoLayoutDataset, HostDataLoader
     from layout2img_tpu_torch.data.synthetic import SyntheticLayoutDataset
     from layout2img_tpu_torch.data.vg import VgLayoutDataset
     from layout2img_tpu_torch.parallel.mesh import current
 
     mesh = current()
-    load = dict(shuffle=not eval_mode, drop_last=not eval_mode, process_id=mesh.rank,
-                process_count=mesh.world)
+    load = dict(shuffle=not eval_mode, drop_last=not eval_mode, process_id=mesh.data_index,
+                process_count=mesh.data_size)
     if args.dataset == "coco":
         ds = CocoLayoutDataset(args.coco_image_dir, args.coco_instances, args.coco_stuff,
                                image_size=args.img_size, left_right_flip=not eval_mode,
@@ -242,7 +249,8 @@ def build_dataset(args, num_objects: int, eval_mode: bool = False, fg_bg: bool =
                              left_right_flip=not eval_mode)
     else:
         return SyntheticLayoutDataset(args.batch_size, args.img_size, num_objects,
-                                      seed=args.seed + mesh.rank, steps=args.steps_per_epoch or 50)
+                                      seed=args.seed + mesh.data_index,
+                                      steps=args.steps_per_epoch or 50)
     return HostDataLoader(ds, args.batch_size, seed=args.seed, **load)
 
 
@@ -311,7 +319,6 @@ def main(argv=None):
     from layout2img_tpu_torch.parallel.mesh import make_mesh, shutdown
 
     args = parse_args(argv)
-    refuse_later_slices(args)
     mesh = make_mesh(args.device)
     try:
         _main(args, mesh)
@@ -330,6 +337,8 @@ def _main(args, mesh) -> None:
     exp = experiment(args.model)
     if exp.special:
         return main_special(args, device)
+    if args.model_parallel > 1:
+        mesh = model_parallel_mesh(args, mesh)
     check_img_size(args, exp)
     loader = build_dataset(args, dataset_spec(args.dataset)[1])
     check_obj_budgets(getattr(loader, "dataset", loader).valid_object_counts(), args)
@@ -344,10 +353,25 @@ def _main(args, mesh) -> None:
         close_logger(log)
 
 
+def model_parallel_mesh(args, mesh):
+    """The (data, model) mesh of ``--model_parallel`` and ``--mp_mode``, made
+    current; refused across nodes and where the ranks do not divide."""
+    from layout2img_tpu_torch.parallel.mesh import make_mesh_2d
+
+    if mesh.nodes > 1:
+        raise SystemExit("--model_parallel runs on one node (its ranks on one host), as the JAX "
+                         "CLI runs it in one process")
+    try:
+        return make_mesh_2d(mesh, args.model_parallel, args.mp_mode)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
 def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: str,
           log: logging.Logger, writer) -> None:
     """The loop of ``layout2img_tpu/cli/train.py::main`` on built networks."""
-    from layout2img_tpu_torch.parallel.mesh import current, replicate
+    from layout2img_tpu_torch.parallel.mesh import current, replicate, shard_dims, shard_parameters
+    from layout2img_tpu_torch.train.checkpoint import whole_tensors
     from layout2img_tpu_torch.train.eval_hook import make_train_sample_fn
     from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
     from layout2img_tpu_torch.train.step import make_train_step
@@ -369,7 +393,12 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
         load_torch_into_state(state, args.torch_ckpt_g or None, args.torch_ckpt_d or None)
         log.info("fine-tuning from torch checkpoints: G=%s D=%s", args.torch_ckpt_g or "-",
                  args.torch_ckpt_d or "-")
-    replicate(current(), state)
+    mesh = current()
+    replicate(mesh, state)
+    if mesh.mode == "tensor":  # each rank keeps its shards; the optimizers and EMA start on them
+        shard_parameters(gen, mesh)
+        shard_parameters(disc, mesh)
+        state = create_train_state(gen, disc, cfg)
     sample_fn = make_train_sample_fn(gen)
 
     def fake_grid(batch: dict, step: int) -> torch.Tensor:
@@ -382,10 +411,12 @@ def train(args, gen: torch.nn.Module, disc: torch.nn.Module, loader, out_dir: st
                     ("images", "labels", "boxes"), out_dir, log, writer, precision,
                     fake_grid=fake_grid):
         raise SystemExit(3)
-    written = {"G.pth": gen.state_dict(), "D.pth": disc.state_dict()}
+    g_dims = shard_dims(gen)
+    written = {"G.pth": whole_tensors(gen.state_dict(), g_dims),
+               "D.pth": whole_tensors(disc.state_dict(), shard_dims(disc))}
     if state.ema is not None:
-        written["G_ema.pth"] = ema_state_dict(gen, state.ema)
-    if current().rank == 0:
+        written["G_ema.pth"] = whole_tensors(ema_state_dict(gen, state.ema), g_dims)
+    if mesh.rank == 0:
         for name, sd in written.items():
             torch.save(sd, os.path.join(out_dir, name))
     log.info("done: %d steps; wrote %s to %s", state.step, ", ".join(written), out_dir)
@@ -428,7 +459,11 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
         ckpt = AsyncSaver(ckpt)
     log.info("training %s on %s (%s): batch %d, %s, from step %d", args.model, args.dataset,
              device, args.batch_size, precision, state.step)
-    if mesh.world > 1:
+    if mesh.model > 1:
+        log.info("2-D mesh, %s mode: %d ranks = %d data groups x model_parallel %d, batch %d per "
+                 "model group, global batch %d", mesh.mode, mesh.world, mesh.data_size,
+                 mesh.model, args.batch_size, args.batch_size * mesh.data_size)
+    elif mesh.world > 1:
         log.info("data parallel: %d ranks, batch %d per rank, global batch %d", mesh.world,
                  args.batch_size, args.batch_size * mesh.world)
 
@@ -487,7 +522,7 @@ def run_loop(args, state, step_fn, evaluator, loader, keys: tuple[str, ...], out
                     log.info("epoch %d step %d: %s", epoch + 1, state.step,
                              {k: round(v, 4) for k, v in m.items()})
                     writer.write(state.step, m)
-                    if fake_grid is not None and mesh.rank == 0:
+                    if fake_grid is not None and mesh.data_index == 0:  # its model group samples
                         writer.write_images(state.step, "fake", fake_grid(batch, state.step))
                     writer.write_images(state.step, "real", batch["images"][:16])
                 if evaluator is not None and state.step % args.eval_every == 0:
@@ -547,6 +582,7 @@ def main_special(args, device: torch.device) -> None:
     if mesh.nodes > 1:
         raise SystemExit(f"--model {args.model} is a single-node trainer; launch it on one node "
                          "(its ranks on one host), not across nodes")
+    model_parallel = args.model_parallel != 1
 
     if args.g_obj_budget or args.d_obj_budget:
         raise SystemExit(f"--g_obj_budget/--d_obj_budget are LostGAN-family flags; --model "
@@ -562,6 +598,10 @@ def main_special(args, device: torch.device) -> None:
     out_dir = os.path.join(args.out_path, args.dataset, str(args.img_size), args.model)
     log = setup_logger("layout2img_tpu_torch", out_dir, rank=mesh.rank)
     writer = MetricWriter(out_dir, rank=mesh.rank, tensorboard=args.tensorboard)
+    if model_parallel:
+        log.warning("--model_parallel %d (--mp_mode %s) changes nothing for --model %s: its "
+                    "trainer runs data parallel over every rank (the JAX CLI ignores the flag "
+                    "there too)", args.model_parallel, args.mp_mode, args.model)
     try:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
         if args.model == "ours_ed":
@@ -645,7 +685,7 @@ def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.
         sample_fn = lambda params, batch, rng: batch_fn(batch, rng)  # noqa: E731 (no EMA here)
     evaluator = PeriodicEval(sample_fn, pool, inception_weights=args.inception_weights,
                              device=device, seed=args.seed, batch_mode=prepare is not None,
-                             mesh=current())
+                             mesh=current().data_view())
     if not evaluator.real_weights:
         log.warning("--eval_every without --inception_weights: rel_fid uses fixed-seed random "
                     "filters (relative trajectory only)")

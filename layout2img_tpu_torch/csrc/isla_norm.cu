@@ -9,6 +9,7 @@
 //
 //   y   = (x - mean_c) / sqrt(var_c + eps)
 //   m_o = mask[b, o] resized to (h, w): F.interpolate bilinear, align_corners=False
+//         (on a row shard: resized to the whole image, read at the shard's rows)
 //   d   = sum_o m_o(p) + 1e-6
 //   out = act(y * (sum_o m_o(p) gamma[b,o,c] / d + 1) + sum_o m_o(p) beta[b,o,c] / d)
 //
@@ -71,6 +72,7 @@ struct Params {
   const void* beta;    // (B, O, C), T
   void* out;           // (B, C, H, W), T
   int C, P, W, O, HS, WS;
+  int row0;            // x holds image rows [row0, row0 + H) (a row shard's window)
   float scale_y, scale_x, eps;
   int relu;
   int tp, tp_log2;     // pixels per tile, a power of two
@@ -188,7 +190,7 @@ __global__ void __launch_bounds__(kMaxThreads) isla_norm_kernel(const Params p) 
   float wy = 0.0f, wx = 0.0f;
   if (in_map) {
     const int y = (p0 + q) / p.W;
-    src_taps(y, p.HS, p.scale_y, y0, y1, wy);
+    src_taps(y + p.row0, p.HS, p.scale_y, y0, y1, wy);
     src_taps(p0 + q - y * p.W, p.WS, p.scale_x, x0, x1, wx);
   }
   const int taps[4] = {y0 * p.WS + x0, y0 * p.WS + x1, y1 * p.WS + x0, y1 * p.WS + x1};
@@ -352,24 +354,28 @@ cudaError_t launch(const Params& p, int batch, int n_tiles, int threads, int sme
 // The caller (ops/isla.py::isla_norm) checks shapes, dtypes and contiguity and
 // picks the tiling (ops/isla.py::launch_config); `aligned` selects the cp.async
 // path and needs h*w and c to be multiples of 16 bytes' worth of elements and
-// 16-byte-aligned x, gamma, beta and out.
+// 16-byte-aligned x, gamma, beta and out. x may be a row shard: rows [row0, row0 + H)
+// of an image full_h rows high (the 2-D mesh's spatial mode), whose mask is resized to
+// the whole image and read at those rows (full_h = H, row0 = 0 for a whole image).
 extern "C" int isla_norm_forward(int bf16, int aligned, const void* x, const void* mean,
                                  const void* var, const void* mask, const void* gamma,
                                  const void* beta, void* out, int batch, int C, int H, int W,
-                                 int O, int HS, int WS, float eps, int relu, int tp,
+                                 int O, int HS, int WS, int row0, int full_h, float eps,
+                                 int relu, int tp,
                                  int threads, int cc, int n_groups, int chunks_per_group,
                                  int smem_bytes, void* stream) {
   int tp_log2 = 0;
   while ((1 << tp_log2) < tp) ++tp_log2;
   if (O < 1 || O > kMaxObjects || tp != (1 << tp_log2) || tp < 16 || tp > 128 ||
       threads * 16 != cc * tp || threads % 32 != 0 || threads > kMaxThreads || threads < tp ||
-      n_groups < 1 || chunks_per_group < 1 || (n_groups - 1) * chunks_per_group * cc >= C)
+      n_groups < 1 || chunks_per_group < 1 || (n_groups - 1) * chunks_per_group * cc >= C ||
+      row0 < 0 || full_h < row0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.x = x; p.mean = static_cast<const float*>(mean); p.var = static_cast<const float*>(var);
   p.mask = mask; p.gamma = gamma; p.beta = beta; p.out = out;
-  p.C = C; p.P = H * W; p.W = W; p.O = O; p.HS = HS; p.WS = WS;
-  p.scale_y = static_cast<float>(HS) / static_cast<float>(H);
+  p.C = C; p.P = H * W; p.W = W; p.O = O; p.HS = HS; p.WS = WS; p.row0 = row0;
+  p.scale_y = static_cast<float>(HS) / static_cast<float>(full_h);
   p.scale_x = static_cast<float>(WS) / static_cast<float>(W);
   p.eps = eps; p.relu = relu;
   p.tp = tp; p.tp_log2 = tp_log2; p.cc = cc;

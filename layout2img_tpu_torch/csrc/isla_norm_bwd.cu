@@ -93,6 +93,7 @@ struct Params {
   float* part_gb;      // (B, n_spans, 2, O, C)
   float* part_dm;      // (n_groups, B, O, H, W)
   int B, C, P, W, O, O4, HS, WS;
+  int row0;            // x holds image rows [row0, row0 + H) (a row shard's window)
   float scale_y, scale_x, eps;
   int relu;
   int threads, tp, tp_log2, cc;
@@ -235,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) isla_norm_bwd_kernel(con
       float wy = 0.0f, wx = 0.0f;
       if (in_map) {
         const int y = (p0 + q) / p.W;
-        src_taps(y, p.HS, p.scale_y, y0, y1, wy);
+        src_taps(y + p.row0, p.HS, p.scale_y, y0, y1, wy);
         src_taps(p0 + q - y * p.W, p.WS, p.scale_x, x0, x1, wx);
       }
       const int taps[4] = {y0 * p.WS + x0, y0 * p.WS + x1, y1 * p.WS + x0, y1 * p.WS + x1};
@@ -548,6 +549,7 @@ struct FinishParams {
   void* dgamma;             // (B, O, C), T
   void* dbeta;              // (B, O, C), T
   int B, C, O, H, W, HS, WS, n_spans, n_groups;
+  int row0;                 // the destination rows are image rows [row0, row0 + H)
   float scale_y, scale_x, eps;
   int gb_slices, st_slices, dm_slices;  // threads that split one sum's rows (slices_for)
   int gb_blocks, gb_per_block;  // blocks of the dgamma/dbeta section, elements per block
@@ -555,16 +557,17 @@ struct FinishParams {
   int stage_rows;            // destination rows of dm staged in shared memory at once
 };
 
-// First destination index d of [0, out) whose taps satisfy i1(d) >= s (upper = false) or
-// i0(d) > s (upper = true), or out. Both taps are non-decreasing in d, so the destinations
-// that reach source index s (i0 <= s <= i1) are [first(false), first(true)).
-__device__ int first_dst(int s, int out, int in, float scale, bool upper) {
+// First destination index d of [0, out) whose taps (those of image index d + off) satisfy
+// i1(d) >= s (upper = false) or i0(d) > s (upper = true), or out. Both taps are
+// non-decreasing in d, so the destinations that reach source index s (i0 <= s <= i1) are
+// [first(false), first(true)).
+__device__ int first_dst(int s, int out, int off, int in, float scale, bool upper) {
   int a = 0, b = out;
   while (a < b) {
     const int m = (a + b) >> 1;
     int i0, i1;
     float w1;
-    src_taps(m, in, scale, i0, i1, w1);
+    src_taps(m + off, in, scale, i0, i1, w1);
     if (upper ? i0 > s : i1 >= s)
       b = m;
     else
@@ -640,18 +643,18 @@ __global__ void __launch_bounds__(kFinishThreads) isla_norm_bwd_finish_kernel(co
     float* part = dmp + p.stage_rows * p.W;                // [kFinishThreads]
     for (int s = tid; s < nr + p.WS; s += kFinishThreads) {
       if (s < nr) {
-        lo_y[s] = first_dst(ys0 + s, p.H, p.HS, p.scale_y, false);
-        hi_y[s] = first_dst(ys0 + s, p.H, p.HS, p.scale_y, true);
+        lo_y[s] = first_dst(ys0 + s, p.H, p.row0, p.HS, p.scale_y, false);
+        hi_y[s] = first_dst(ys0 + s, p.H, p.row0, p.HS, p.scale_y, true);
       } else {
-        lo_x[s - nr] = first_dst(s - nr, p.W, p.WS, p.scale_x, false);
-        hi_x[s - nr] = first_dst(s - nr, p.W, p.WS, p.scale_x, true);
+        lo_x[s - nr] = first_dst(s - nr, p.W, 0, p.WS, p.scale_x, false);
+        hi_x[s - nr] = first_dst(s - nr, p.W, 0, p.WS, p.scale_x, true);
       }
     }
     for (int i = tid; i < nr * p.W; i += kFinishThreads) rows[i] = 0.0f;
     __syncthreads();
     const size_t group_stride = static_cast<size_t>(p.B) * p.O * p.H * p.W;
     const float* dm = p.part_dm + static_cast<size_t>(plane) * p.H * p.W;
-    const int y_end = hi_y[nr - 1];
+    const int y_end = hi_y[nr - 1];  // a band that no row of the window reaches stays zero
     for (int yb = lo_y[0]; yb < y_end; yb += p.stage_rows) {
       const int ny = min(p.stage_rows, y_end - yb);
       block_sums(dm + static_cast<size_t>(yb) * p.W, group_stride, p.n_groups, ny * p.W,
@@ -662,7 +665,8 @@ __global__ void __launch_bounds__(kFinishThreads) isla_norm_bwd_finish_kernel(co
         const int y0 = max(lo_y[r], yb), y1 = min(hi_y[r], yb + ny);
         float acc = rows[i];
         for (int y = y0; y < y1; ++y)
-          acc = fmaf(tap_weight(y, ys0 + r, p.HS, p.scale_y), dmp[(y - yb) * p.W + x], acc);
+          acc = fmaf(tap_weight(y + p.row0, ys0 + r, p.HS, p.scale_y), dmp[(y - yb) * p.W + x],
+                     acc);
         rows[i] = acc;
       }
       __syncthreads();
@@ -731,12 +735,14 @@ int slices_for(int rows) {
 // with n_spans = ceil(ceil(H*W / tp) / tiles_per_span). U's channels are split over `ksplit`
 // threads per 4 x 4 block (ksplit * (O4 / 4) * (tp / 4) <= threads). `aligned` selects 8- and
 // 16-byte loads and stores of x, g and dx: it needs H*W % 4 == 0 and 16-byte-aligned x, grad
-// and dx.
+// and dx. On a row shard (rows [row0, row0 + H) of an image full_h rows high) the mask taps
+// are the whole image's at those rows, and the finishing kernel's dmask is this shard's part.
 extern "C" int isla_norm_backward(int bf16, int aligned, const void* x, const void* mean,
                                   const void* var, const void* mask, const void* gamma,
                                   const void* beta, const void* grad, void* dx, void* part_stats,
                                   void* part_gb, void* part_dm, int batch, int C, int H, int W,
-                                  int O, int HS, int WS, float eps, int relu, int threads, int tp,
+                                  int O, int HS, int WS, int row0, int full_h, float eps, int relu,
+                                  int threads, int tp,
                                   int tiles_per_span, int n_groups, int chunks_per_group,
                                   int ksplit, void* stream) {
   int tp_log2 = 0;
@@ -746,7 +752,7 @@ extern "C" int isla_norm_backward(int bf16, int aligned, const void* x, const vo
   if (O < 1 || O > kMaxObjects || tp != (1 << tp_log2) || tp < 16 || tp > 64 ||
       (threads != 64 && threads != 128 && threads != kThreads) || threads < tp ||
       ksplit < 1 || ksplit * units > threads || tiles_per_span < 1 || n_groups < 1 ||
-      chunks_per_group < 1)
+      chunks_per_group < 1 || row0 < 0 || full_h < row0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cc = 8 * threads / tp;
   if (n_groups * chunks_per_group * cc < C || (n_groups - 1) * chunks_per_group * cc >= C)
@@ -758,8 +764,8 @@ extern "C" int isla_norm_backward(int bf16, int aligned, const void* x, const vo
   p.part_gb = static_cast<float*>(part_gb);
   p.part_dm = static_cast<float*>(part_dm);
   p.B = batch; p.C = C; p.P = H * W; p.W = W; p.O = O; p.O4 = O4;
-  p.HS = HS; p.WS = WS;
-  p.scale_y = static_cast<float>(HS) / static_cast<float>(H);
+  p.HS = HS; p.WS = WS; p.row0 = row0;
+  p.scale_y = static_cast<float>(HS) / static_cast<float>(full_h);
   p.scale_x = static_cast<float>(WS) / static_cast<float>(W);
   p.eps = eps; p.relu = relu;
   p.threads = threads; p.tp = tp; p.tp_log2 = tp_log2; p.cc = cc;
@@ -792,9 +798,10 @@ extern "C" int isla_norm_backward_finish(int bf16, const void* part_stats, const
                                          const void* part_dm, const void* var, void* dmean,
                                          void* dvar, void* dmask, void* dgamma, void* dbeta,
                                          int batch, int C, int H, int W, int O, int HS, int WS,
-                                         float eps, int n_spans, int n_groups, void* stream) {
+                                         int row0, int full_h, float eps, int n_spans,
+                                         int n_groups, void* stream) {
   if (batch < 1 || C < 1 || O < 1 || H < 1 || W < 1 || HS < 1 || WS < 1 || n_spans < 1 ||
-      n_groups < 1)
+      n_groups < 1 || row0 < 0 || full_h < row0 + H)
     return static_cast<int>(cudaErrorInvalidValue);
   FinishParams p;
   p.part_stats = static_cast<const float*>(part_stats);
@@ -804,8 +811,8 @@ extern "C" int isla_norm_backward_finish(int bf16, const void* part_stats, const
   p.dmean = static_cast<float*>(dmean); p.dvar = static_cast<float*>(dvar);
   p.dmask = dmask; p.dgamma = dgamma; p.dbeta = dbeta;
   p.B = batch; p.C = C; p.O = O; p.H = H; p.W = W; p.HS = HS; p.WS = WS;
-  p.n_spans = n_spans; p.n_groups = n_groups;
-  p.scale_y = static_cast<float>(HS) / static_cast<float>(H);
+  p.n_spans = n_spans; p.n_groups = n_groups; p.row0 = row0;
+  p.scale_y = static_cast<float>(HS) / static_cast<float>(full_h);
   p.scale_x = static_cast<float>(WS) / static_cast<float>(W);
   p.eps = eps;
   p.gb_slices = slices_for(n_spans);
@@ -822,9 +829,9 @@ extern "C" int isla_norm_backward_finish(int bf16, const void* part_stats, const
   const int wide = W > WS ? W : WS;
   p.band_rows = 2048 / wide < 1 ? 1 : (2048 / wide > HS ? HS : 2048 / wide);
   p.n_bands = (HS + p.band_rows - 1) / p.band_rows;
-  // destination rows that reach a band: (band_rows + 1) * H / HS from the taps' spacing,
-  // and two more for the clamped edges and rounding
-  p.stage_rows = static_cast<int>((p.band_rows + 1) * static_cast<long>(H) / HS) + 3;
+  // destination rows that reach a band: (band_rows + 1) * full_h / HS from the taps'
+  // spacing, and two more for the clamped edges and rounding
+  p.stage_rows = static_cast<int>((p.band_rows + 1) * static_cast<long>(full_h) / HS) + 3;
   if (p.stage_rows > H) p.stage_rows = H;
   const int plane_words = 2 * (p.band_rows + WS) + (p.band_rows + p.stage_rows) * W + kFinishThreads;
   const int smem_bytes = 4 * (plane_words > kFinishThreads ? plane_words : kFinishThreads);

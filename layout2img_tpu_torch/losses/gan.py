@@ -8,7 +8,9 @@ Under a data-parallel mesh (``parallel/mesh.py``) a masked mean divides by
 the global count of valid objects (summed over the ranks, without gradient)
 and is scaled by W, so that the ranks' mean of it, which the gradient
 all-reduce takes, is the global masked mean. An unmasked mean is the rank's;
-the ranks' batches are the same size, so their mean is the global one."""
+the ranks' batches are the same size, so their mean is the global one. On
+a 2-D mesh the scores are whole on every rank of a model group, so W counts
+the data groups and the count is summed over the data axis."""
 
 from __future__ import annotations
 
@@ -23,10 +25,10 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tens
         return x.mean()
     x = x.reshape(mask.shape)
     mesh = data_mesh.current()
-    if mesh.world == 1:
+    if mesh.data_size == 1:
         return (x * mask).sum() / mask.sum().clamp_min(1.0)
-    count = mesh.sum_detached(mask.sum().to(torch.float32)).clamp_min(1.0)
-    return (x * mask).sum() * mesh.world / count
+    count = mesh.data_sum_detached(mask.sum().to(torch.float32)).clamp_min(1.0)
+    return (x * mask).sum() * mesh.data_size / count
 
 
 def hinge_d_real(scores: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:

@@ -14,6 +14,10 @@ converts the JAX package's parameters.
 ``dtype=torch.bfloat16`` runs the conv stack in bf16 (the train step passes
 it under mixed precision): the VGG weights and both images are cast, and
 each tap's L1 mean still accumulates in f32.
+
+On the 2-D mesh's row shards (spatial mode, ``parallel/mesh.py``) the convs
+take halo rows, the 2x2 max pools stay local and each L1 mean is the
+model-summed sum over the whole image's count.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import functools
 import torch
 from torch import nn
 
+from layout2img_tpu_torch.nn.layers import Conv2d
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 from layout2img_tpu_torch.utils.casting import cast_params
 
 # torchvision vgg19 'features' up to relu5_1 (conv channels; 'M' = 2x2 max pool)
@@ -39,7 +45,7 @@ class VGG19Features(nn.Module):
             if item == "M":
                 layers.append(nn.MaxPool2d(2, 2))
             else:
-                layers += [nn.Conv2d(in_ch, item, 3, padding=1), nn.ReLU()]
+                layers += [Conv2d(in_ch, item, 3, padding=1), nn.ReLU()]
                 in_ch = item
         self.features = nn.Sequential(*layers)
 
@@ -75,5 +81,5 @@ class VGGLoss(nn.Module):
             r_taps = vgg(real)
         loss = torch.zeros((), dtype=torch.float32, device=fake.device)
         for w, f, r in zip(self.WEIGHTS, f_taps, r_taps):
-            loss = loss + w * (f - r).to(torch.float32).abs().mean()
+            loss = loss + w * data_mesh.row_mean((f - r).to(torch.float32).abs())
         return loss

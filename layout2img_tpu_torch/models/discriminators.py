@@ -27,6 +27,13 @@ the backward. The parameters and the state dict are the same. Module names
 are the reference's (``rcnn_discriminator_app.py``), so
 ``utils.convert.discriminator_state_dict_from_jax`` and reference-format
 dicts load with ``strict=True``.
+
+In the 2-D mesh's spatial mode (``parallel/mesh.py``), called on row shards
+of the images (inside the train step), each trunk block whose input splits
+(``splits_rows``) runs on this rank's rows, and so do the object blocks
+before the crops; the image score's spatial sum is model-summed and RoIAlign
+sums the ranks' partial crops. The crops and everything after them are whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from layout2img_tpu_torch.nn.blocks import DiscOptimizedBlock, DiscResBlock
 from layout2img_tpu_torch.nn.spectral import SNDense, SNEmbed
 from layout2img_tpu_torch.ops.bbox import xywh_to_xyxy
 from layout2img_tpu_torch.ops.roi import dual_scale_roi_align, roi_align
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 # per size: (trunk blocks as (in, out) channel multipliers of ch, 0 = the
 # image, and downsample), the blocks that may be rematerialized, the image
@@ -94,16 +102,22 @@ class LayoutDiscriminator(nn.Module):
             self.l_y_app = SNEmbed(num_classes, ch * 8)
             self.app = SNDense(ch * 16, 1)
 
-    def _trunk(self, images: torch.Tensor) -> list[torch.Tensor]:
-        """Every trunk block's output, in order."""
-        outs, x = [], images
+    def _trunk(self, images: torch.Tensor, rows: bool) -> tuple[list[torch.Tensor], list[bool]]:
+        """Every trunk block's output, in order, and whether each is a row
+        shard (``rows``: the images are)."""
+        outs, sharded, x, x_rows, h = [], [], images, rows, self.image_size
         i = 1
         while hasattr(self, f"block{i}"):
             block = getattr(self, f"block{i}")
-            x = remat.checkpoint_module(block, x) if i <= self.remat_blocks else block(x)
+            split = rows and data_mesh.splits_rows(h)
+            x, x_rows = data_mesh.reshard_rows(x, x_rows, split), split
+            with data_mesh.row_shards(split):
+                x = remat.checkpoint_module(block, x) if i <= self.remat_blocks else block(x)
             outs.append(x)
+            sharded.append(split)
+            h = h // 2 if block.downsample else h
             i += 1
-        return outs
+        return outs, sharded
 
     def forward(self, images: torch.Tensor, boxes: torch.Tensor,
                 labels: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -115,25 +129,48 @@ class LayoutDiscriminator(nn.Module):
             raise ValueError(f"images {tuple(images.shape)} are not {s}px")
         b, o = labels.shape
         boxes_px = xywh_to_xyxy(boxes) * s
-        feats = self._trunk(images)
-        top = F.relu(feats[-1])
-        pooled = top.mean(dim=(2, 3)) if s == 64 else top.sum(dim=(2, 3))
-        out = {"image": getattr(self, self.score_name)(pooled),
-               "valid": (labels != 0).to(torch.float32)}
+        feats, sharded = self._trunk(images, data_mesh.rows_sharded())
 
-        if s == 128:
-            obj_s = self.block_obj4(self.block_obj3(feats[1]))  # 32x32, scale 1/4
-            obj_l = self.block_obj4(feats[2])  # 16x16, scale 1/8
-            crops = dual_scale_roi_align(obj_s, obj_l, boxes_px, 8, 1.0 / 4.0, 1.0 / 8.0, 64.0)
-            obj_block = self.block_obj5
-        elif s == 256:
-            obj_s = self.block_obj5(self.block_obj4(feats[2]))  # 32x32, scale 1/8
-            obj_l = self.block_obj5(feats[3])  # 16x16, scale 1/16
-            crops = dual_scale_roi_align(obj_s, obj_l, boxes_px, 8, 1.0 / 8.0, 1.0 / 16.0, 128.0)
-            obj_block = self.block_obj6
-        else:
-            crops = roi_align(feats[2], boxes_px, 8, 1.0 / 2.0)  # 32x32, scale 1/2
-            obj_block = self.block_obj4
+        def on_rows(i: int, *blocks: nn.Module) -> torch.Tensor:
+            """``blocks`` in turn on trunk output i, on its rows if it is a shard."""
+            x = feats[i]
+            with data_mesh.row_shards(sharded[i]):
+                for block in blocks:
+                    x = block(x)
+            return x
+
+        with data_mesh.row_shards(False):
+            top = F.relu(feats[-1])
+            if sharded[-1]:
+                pooled = data_mesh.model_sum(top.sum(dim=(2, 3)))
+                if s == 64:
+                    pooled = pooled / (top.shape[-2] * data_mesh.current().model * top.shape[-1])
+            else:
+                pooled = top.mean(dim=(2, 3)) if s == 64 else top.sum(dim=(2, 3))
+            out = {"image": getattr(self, self.score_name)(pooled),
+                   "valid": (labels != 0).to(torch.float32)}
+
+            if s == 128:
+                obj_s = on_rows(1, self.block_obj3, self.block_obj4)  # 32x32, scale 1/4
+                obj_l = on_rows(2, self.block_obj4)  # 16x16, scale 1/8
+                crops = dual_scale_roi_align(obj_s, obj_l, boxes_px, 8, 1.0 / 4.0, 1.0 / 8.0, 64.0,
+                                             (sharded[1], sharded[2]))
+                obj_block = self.block_obj5
+            elif s == 256:
+                obj_s = on_rows(2, self.block_obj4, self.block_obj5)  # 32x32, scale 1/8
+                obj_l = on_rows(3, self.block_obj5)  # 16x16, scale 1/16
+                crops = dual_scale_roi_align(obj_s, obj_l, boxes_px, 8, 1.0 / 8.0, 1.0 / 16.0,
+                                             128.0, (sharded[2], sharded[3]))
+                obj_block = self.block_obj6
+            else:
+                crops = roi_align(feats[2], boxes_px, 8, 1.0 / 2.0, sharded[2])  # 32x32, 1/2
+                obj_block = self.block_obj4
+            return self._objects(crops, labels, obj_block, out)
+
+    def _objects(self, crops: torch.Tensor, labels: torch.Tensor, obj_block: nn.Module,
+                 out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The object and app scores of the crops (b, o, c, 8, 8), into ``out``."""
+        b, o = labels.shape
         of = crops.reshape(b * o, *crops.shape[2:])  # objects folded into the batch
         flat_labels = labels.reshape(-1)
 

@@ -23,6 +23,14 @@ loads with ``strict=True``; the 64px generator names its blocks
 ``rgb_head=False`` is the feature-only variant: the last block's features,
 without the RGB head.
 
+In the 2-D mesh's spatial mode (``parallel/mesh.py``), called on row shards
+(inside the train step), the object path (label embedding, context, mask
+regression and splat), the 4x4 ``fc`` start and the stage masks stay whole
+on every rank of the model group; each block whose input splits into row
+shards (``splits_rows``) runs on this rank's rows, the ISLA kernels reading
+the whole stage masks through its row window; the image leaves in row
+shards.
+
 ``BgFgGenerator`` is the Ours-ED two-stream generator: two feature-only 64px
 v1 generators, one over the foreground classes and one over the background
 classes, their features concatenated ``[bg, fg]``, a ``CombineResBlock`` and
@@ -42,11 +50,13 @@ from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.nn.attention import BoxMultiHeadedAttention
 from layout2img_tpu_torch.nn.blocks import GenResBlock
 from layout2img_tpu_torch.nn.gcn import GraphFunc
+from layout2img_tpu_torch.nn.layers import Embedding
 from layout2img_tpu_torch.nn.mask_regress import MaskRegressNet, MaskRegressNetV2
 from layout2img_tpu_torch.nn.norms import SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv, SNDense
 from layout2img_tpu_torch.ops.bbox import bbox_mask
 from layout2img_tpu_torch.ops.interp import resize_bilinear, resize_nearest
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 
 def _channel_schedule(image_size: int) -> tuple[list[int], list[int]]:
@@ -85,7 +95,7 @@ class LostGANGenerator(nn.Module):
         self.legacy_attention = legacy_attention
         num_w = z_dim + emb_dim
 
-        self.label_embedding = nn.Embedding(num_classes, emb_dim)
+        self.label_embedding = Embedding(num_classes, emb_dim)
         if context == "attention":
             self.context = BoxMultiHeadedAttention(1, num_w, use_geometry=use_geometry,
                                                    legacy_view=legacy_attention)
@@ -130,40 +140,46 @@ class LostGANGenerator(nn.Module):
                 z_im: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
         """z (b, o, z_dim); boxes (b, o, 4) xywh in [0, 1]; labels (b, o), 0 = pad;
         z_im (b, z_dim) -> images (b, 3, h, w) in [-1, 1], or without the RGB
-        head the features (b, ch, h, w)."""
-        b = z.shape[0]
-        w = torch.cat([z, self.label_embedding(labels).to(z.dtype)], dim=-1)  # (b, o, num_w)
-        if isinstance(self.context, GraphFunc):
-            w = self.context(w, labels, deterministic)
-        elif self.context is not None:
-            w = self.context(w, w, w, boxes, labels)
-        bmask = self.mask_regress(w, boxes)  # (b, o, map, map) or (b, o, P, map, map)
-
-        x = self.fc(z_im).reshape(b, 16 * self.ch, 4, 4)
-        if not self.stage_masks:
-            layout = bmask.to(x.dtype)
-            for i in range(self.n_blocks):
-                x, _ = getattr(self, self._block(i))(x, w, layout, deterministic)
-            return x if self.final is None else self.final(x)
-
-        hs = self.hard_mask_size
-        # masks in the compute dtype: f32 boxes would otherwise promote the
-        # whole modulation path under bf16
-        hard = bbox_mask(boxes, hs, hs).to(x.dtype)
-        stage_bbox = bmask.to(x.dtype)
+        head the features (b, ch, h, w); on row shards (``parallel/mesh.py::
+        rows_sharded``) this rank's rows of them."""
+        rows = data_mesh.rows_sharded()
+        with data_mesh.row_shards(False):
+            b = z.shape[0]
+            w = torch.cat([z, self.label_embedding(labels).to(z.dtype)], dim=-1)  # (b, o, num_w)
+            if isinstance(self.context, GraphFunc):
+                w = self.context(w, labels, deterministic)
+            elif self.context is not None:
+                w = self.context(w, w, w, boxes, labels)
+            bmask = self.mask_regress(w, boxes)  # (b, o, map, map) or (b, o, P, map, map)
+            x = self.fc(z_im).reshape(b, 16 * self.ch, 4, 4)
+            # masks in the compute dtype: f32 boxes would otherwise promote the
+            # whole modulation path under bf16
+            stage = bmask.to(x.dtype)  # the layout, or the first stage mask
+            if self.stage_masks:
+                hs = self.hard_mask_size
+                hard = bbox_mask(boxes, hs, hs).to(x.dtype)
+        x_rows = False
         for i in range(self.n_blocks):
-            x, smask = getattr(self, self._block(i))(x, w, stage_bbox, deterministic)
+            split = rows and data_mesh.splits_rows(4 << i)  # the block's input height
+            x, x_rows = data_mesh.reshard_rows(x, x_rows, split), split
+            with data_mesh.row_shards(split):
+                x, smask = getattr(self, self._block(i))(x, w, stage, deterministic)
             if smask is None:
                 continue
-            hh, ww = x.shape[-2:]
-            o = labels.shape[1]
-            # each object's predicted mask at its own class
-            idx = labels[:, :, None, None].expand(b, o, hh, ww)
-            seman = torch.sigmoid(smask.gather(1, idx)) * resize_nearest(hard, (hh, ww))
-            alpha_full = getattr(self, f"alpha{i + 1}").reshape(-1)
-            alpha = torch.sigmoid(alpha_full)[labels].to(x.dtype)[:, :, None, None]
-            stage_bbox = resize_bilinear(bmask, (hh, ww)).to(x.dtype) * (1 - alpha) + seman * alpha
-        return x if self.final is None else self.final(x)
+            with data_mesh.row_shards(False):
+                hh, ww = smask.shape[-2:]
+                o = labels.shape[1]
+                # each object's predicted mask at its own class
+                idx = labels[:, :, None, None].expand(b, o, hh, ww)
+                seman = torch.sigmoid(smask.gather(1, idx)) * resize_nearest(hard, (hh, ww))
+                alpha_full = getattr(self, f"alpha{i + 1}").reshape(-1)
+                alpha = torch.sigmoid(alpha_full)[labels].to(x.dtype)[:, :, None, None]
+                stage = resize_bilinear(bmask, (hh, ww)).to(x.dtype) * (1 - alpha) + seman * alpha
+        x = data_mesh.reshard_rows(x, x_rows, rows)
+        if self.final is None:
+            return x
+        with data_mesh.row_shards(rows):
+            return self.final(x)
 
 
 class CombineResBlock(nn.Module):

@@ -22,6 +22,7 @@ import math
 import torch
 from torch import nn
 
+from layout2img_tpu_torch.nn.layers import Linear
 from layout2img_tpu_torch.ops.relation import box_relational_embedding
 from layout2img_tpu_torch.parallel import mesh as data_mesh
 
@@ -37,9 +38,9 @@ class BoxMultiHeadedAttention(nn.Module):
         self.trignometric = trignometric
         self.use_geometry = use_geometry
         self.legacy_view = legacy_view
-        self.linears = nn.ModuleList(nn.Linear(d_model, d_model) for _ in range(4))
+        self.linears = nn.ModuleList(Linear(d_model, d_model) for _ in range(4))
         dim_g = 64 if trignometric else 4
-        self.WGs = nn.ModuleList(nn.Linear(dim_g, 1) for _ in range(heads))
+        self.WGs = nn.ModuleList(Linear(dim_g, 1) for _ in range(heads))
         self.layer_norm0 = nn.LayerNorm(d_model, eps=1e-5)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
 

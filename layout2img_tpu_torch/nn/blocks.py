@@ -10,6 +10,13 @@ with 2x2 average-pool downsampling.
 
 As in the JAX package, the PSP head's Dropout2d is switched by the
 ``deterministic`` argument (default True, dropout off), not by train/eval.
+
+On row shards (the 2-D mesh's spatial mode, ``parallel/mesh.py``) the
+blocks run on the shard: convs take halo rows, BN and ISLA statistics span
+every rank, nearest 2x upsampling and 2x2 pooling are local. A
+``GenResBlock``'s mask head returns the whole stage mask: the conv head runs
+on the shard and its logits are joined; the PSP head, whose adaptive pools
+span the image, runs on the joined rows.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from layout2img_tpu_torch.nn.layers import Conv2d
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm, SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv
 from layout2img_tpu_torch.ops.interp import adaptive_avg_pool2d, resize_bilinear
@@ -52,14 +60,14 @@ class PSPModule(nn.Module):
         self.stages = nn.ModuleList(
             nn.Sequential(
                 AdaptiveAvgPool(s),
-                nn.Conv2d(in_features, out_features, 1, bias=False),
+                Conv2d(in_features, out_features, 1, bias=False),
                 SyncBatchNorm(out_features),
                 nn.ReLU(),
             )
             for s in sizes
         )
         self.bottleneck = nn.Sequential(
-            nn.Conv2d(in_features + len(sizes) * out_features, out_features, 3, padding=1, bias=False),
+            Conv2d(in_features + len(sizes) * out_features, out_features, 3, padding=1, bias=False),
             SyncBatchNorm(out_features),
             nn.ReLU(),
         )
@@ -87,13 +95,13 @@ class GenResBlock(nn.Module):
         if not predict_mask:
             self.conv_mask = None
         elif psp_module:
-            self.conv_mask = nn.ModuleList([PSPModule(out_ch, 100), nn.Conv2d(100, num_mask_classes, 1)])
+            self.conv_mask = nn.ModuleList([PSPModule(out_ch, 100), Conv2d(100, num_mask_classes, 1)])
         else:
             self.conv_mask = nn.Sequential(
-                nn.Conv2d(out_ch, 100, 3, padding=1),
+                Conv2d(out_ch, 100, 3, padding=1),
                 SyncBatchNorm(100),
                 nn.ReLU(),
-                nn.Conv2d(100, num_mask_classes, 1),
+                Conv2d(100, num_mask_classes, 1),
             )
 
     def forward(self, x: torch.Tensor, vectors: torch.Tensor, mask: torch.Tensor,
@@ -102,8 +110,8 @@ class GenResBlock(nn.Module):
         (b, o, P, mh, mw) with P parts.
 
         Returns the block output and, with a mask head, the per-class stage
-        mask logits (b, num_mask_classes, h', w'). ``deterministic=False``
-        turns on the PSP head's dropout."""
+        mask logits (b, num_mask_classes, h', w'), whole also on row shards.
+        ``deterministic=False`` turns on the PSP head's dropout."""
         y = self.b1(x, vectors, mask, relu=True)
         if self.upsample:
             y = upsample2x_nearest(y)
@@ -121,8 +129,11 @@ class GenResBlock(nn.Module):
             return out, None
         if isinstance(self.conv_mask, nn.ModuleList):  # PSP head
             psp, conv = self.conv_mask
-            return out, conv(psp(out, deterministic))
-        return out, self.conv_mask(out)
+            whole = data_mesh.join_rows(out) if data_mesh.rows_sharded() else out
+            with data_mesh.row_shards(False):
+                return out, conv(psp(whole, deterministic))
+        smask = self.conv_mask(out)
+        return out, data_mesh.join_rows(smask) if data_mesh.rows_sharded() else smask
 
 
 class DiscOptimizedBlock(nn.Module):

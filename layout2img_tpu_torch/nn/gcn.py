@@ -30,7 +30,12 @@ def same_label_adjacency(labels: torch.Tensor) -> torch.Tensor:
 
 
 class GraphConvolution(nn.Module):
-    """``A (h W) + b`` with W (in, out), as the reference stores it."""
+    """``A (h W) + b`` with W (in, out), as the reference stores it. In the
+    2-D mesh's tensor mode W may hold this rank's columns (``tp_dim`` 1,
+    ``parallel/mesh.py::shard_parameters``): the products are gathered."""
+
+    TP_PARAM, TP_DIM = "weight", 1
+    tp_dim: int | None = None
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -38,7 +43,10 @@ class GraphConvolution(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features))
 
     def forward(self, h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-        return adj @ (h @ self.weight.to(h.dtype)) + self.bias.to(h.dtype)
+        if self.tp_dim is None:
+            return adj @ (h @ self.weight.to(h.dtype)) + self.bias.to(h.dtype)
+        y = adj @ (data_mesh.copy_to_model(h) @ self.weight.to(h.dtype))
+        return data_mesh.gather_model(y, -1) + self.bias.to(h.dtype)
 
 
 class GraphFunc(nn.Module):

@@ -10,7 +10,9 @@ sums of x and x^2 are summed over the ranks (differentiably, so the gradient
 of the statistics reaches every rank's x) and n counts every rank's pixels.
 The recompute of a checkpointed region (``nn/remat.py``) folds nothing: the
 forward it repeats already did; every rank recomputes in the same order, so
-its sums over the ranks meet.
+its sums over the ranks meet. On a 2-D mesh the sums run over the data axis,
+or over every rank where x is a row shard (spatial mode), and n counts the
+pixels those ranks hold.
 
 ``SpatialAdaptiveNorm`` is the ISLA norm: BN without affine, then the
 mask-weighted per-object affine, and optionally the ReLU that follows it in
@@ -20,7 +22,9 @@ statistics to that call, and autograd carries their gradients back into x.
 With P > 1 parts (the part-mask generator) it makes P such calls, one per
 part, without the ReLU, sums them and applies the ReLU once: JAX's
 ``y * sum_p (G_p + 1) + sum_p B_p`` is ``sum_p [y (G_p + 1) + B_p]``
-exactly, and autograd sums the P backward calls.
+exactly, and autograd sums the P backward calls. On a row shard the ISLA
+calls take the shard's row window (``parallel/mesh.py::row_window``): the
+kernels read the whole stage mask at the shard's rows.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     in f32."""
     xf = x.to(torch.float32)
     mesh = data_mesh.current()
-    if mesh.world == 1:
+    if mesh.stats_axis()[1] == 1:
         mean = xf.mean(dim=(0, 2, 3))
         return mean, (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
     sums = mesh.sum(torch.stack([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3))]))
@@ -51,8 +55,9 @@ def batch_stats(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def stat_count(x: torch.Tensor) -> int:
-    """The values per channel ``batch_stats`` averages: b*h*w on every rank."""
-    return x.numel() // x.shape[1] * data_mesh.current().world
+    """The values per channel ``batch_stats`` averages: b*h*w on each rank
+    it sums over."""
+    return x.numel() // x.shape[1] * data_mesh.current().stats_axis()[1]
 
 
 class SyncBatchNorm(nn.Module):
@@ -141,14 +146,16 @@ class SpatialAdaptiveNorm(nn.Module):
         beta = self.bias_proj(vectors).to(x.dtype)
         mask = mask.to(x.dtype)
         eps = self.batch_norm2d.eps
+        row0, full_h = data_mesh.row_window(x.shape[-2])
         if self.parts == 1:
             return isla_norm(x, mean, var, eps, mask.contiguous(), gamma.contiguous(),
-                             beta.contiguous(), relu=relu)
+                             beta.contiguous(), relu=relu, row0=row0, full_h=full_h)
         b, o = vectors.shape[:2]
         c = x.shape[1]
         gamma = gamma.reshape(b, o, self.parts, c)
         beta = beta.reshape(b, o, self.parts, c)
         out = sum(isla_norm(x, mean, var, eps, mask[:, :, p].contiguous(),
-                            gamma[:, :, p].contiguous(), beta[:, :, p].contiguous())
+                            gamma[:, :, p].contiguous(), beta[:, :, p].contiguous(),
+                            row0=row0, full_h=full_h)
                   for p in range(self.parts))
         return torch.relu(out) if relu else out

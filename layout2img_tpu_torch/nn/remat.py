@@ -25,7 +25,9 @@ statistics over the ranks again, as the forward did: its backward has to
 sum their gradients over the ranks too, which replayed constants could not.
 Every rank runs the same graph, so every rank recomputes the same regions in
 the same order and the collectives meet (``tests/test_torch_port_parallel.py``
-runs ``remat="gd"`` on 2 ranks).
+runs ``remat="gd"`` on 2 ranks). The recompute also runs with the forward's
+row-shard setting (``parallel/mesh.py::row_shards``), so a block on row shards
+takes its halos again.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from typing import Any, Callable
 import torch
 import torch.utils.checkpoint
 from torch import nn
+
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 _local = threading.local()
 
@@ -90,8 +94,14 @@ def checkpoint(fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` under non-reentrant ``torch.utils.checkpoint``,
     with this module's replay of layer state. Pass the tensors ``fn`` reads
     as arguments: their devices are the ones whose RNG state is replayed."""
+    rows = data_mesh.rows_sharded()
+
+    def run(*a, **k):
+        with data_mesh.row_shards(rows):
+            return fn(*a, **k)
+
     return torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, preserve_rng_state=True,
+        run, *args, use_reentrant=False, preserve_rng_state=True,
         context_fn=lambda: _Stash().contexts(), **kwargs)
 
 

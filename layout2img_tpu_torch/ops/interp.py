@@ -78,12 +78,17 @@ def _resize_matrix(out_size: int, in_size: int, align_corners: bool, dtype: torc
     return device_table(key, _resize_matrix_np(*key[1:]), dtype, device)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *, align_corners: bool = False) -> torch.Tensor:
-    """Bilinear resize of the trailing two dims ``(..., H, W)``."""
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], *, align_corners: bool = False,
+                    rows: tuple[int, int] | None = None) -> torch.Tensor:
+    """Bilinear resize of the trailing two dims ``(..., H, W)``. ``rows``
+    (start, count) keeps only those rows of the resized map: the same values
+    as the whole resize's rows (a row shard's window)."""
     (h_in, w_in), (h_out, w_out) = x.shape[-2:], out_hw
     if (h_in, w_in) == (h_out, w_out):
-        return x
+        return x if rows is None else x[..., rows[0]:rows[0] + rows[1], :]
     wy = _resize_matrix(h_out, h_in, align_corners, x.dtype, x.device)
+    if rows is not None:
+        wy = wy[rows[0]:rows[0] + rows[1]]
     wx = _resize_matrix(w_out, w_in, align_corners, x.dtype, x.device)
     return wy @ x @ wx.T
 

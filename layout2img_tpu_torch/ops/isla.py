@@ -7,7 +7,11 @@ Per pixel p and channel c, with m_o the source mask resized to x's size::
     y   = (x - mean_c) * rsqrt(var_c + eps)
     out = y * (sum_o m_o g_oc / (sum_o m_o + 1e-6) + 1) + sum_o m_o b_oc / (sum_o m_o + 1e-6)
 
-and ``relu(out)`` when asked. mean and var are the running statistics in
+and ``relu(out)`` when asked. x may be a row shard of the image (the 2-D
+mesh's spatial mode, ``parallel/mesh.py``): rows ``[row0, row0 + h)`` of an
+image ``full_h`` rows high, whose source mask is resized to the whole image
+and read at those rows. The gradient of the source mask is then this
+shard's part; the ranks' parts sum to the whole. mean and var are the running statistics in
 eval and the batch statistics in training (computed by the caller, which
 lets autograd carry their gradients back into x). Counterparts in the JAX
 package: ``SyncBatchNorm`` and ``SpatialAdaptiveNorm`` of ``nn/norms.py``,
@@ -60,15 +64,17 @@ def isla_modulate_plain(xn: torch.Tensor, mask: torch.Tensor, gamma: torch.Tenso
 
 def isla_norm_plain(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
                     mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                    relu: bool = False) -> torch.Tensor:
+                    relu: bool = False, row0: int = 0, full_h: int | None = None) -> torch.Tensor:
     """Plain torch version, pass by pass: the BN apply (in f32, rounded to x's
-    dtype), ``resize_bilinear`` of the source mask to x's size, the
+    dtype), ``resize_bilinear`` of the source mask to the image's size (x's
+    rows ``[row0, row0 + h)`` of ``full_h``; default the whole of x), the
     modulation, then the ReLU. The CPU path and the kernels' oracle: under
     autograd it is also the plain version of the backward."""
     f32 = torch.float32
+    h, w = x.shape[-2:]
     rstd = torch.rsqrt(var.to(f32)[:, None, None] + eps)
     y = ((x.to(f32) - mean.to(f32)[:, None, None]) * rstd).to(x.dtype)
-    mask = resize_bilinear(mask_src, tuple(x.shape[-2:]))
+    mask = resize_bilinear(mask_src, (full_h or h, w), rows=(row0, h))
     out = isla_modulate_plain(y, mask, gamma, beta)
     return torch.relu(out) if relu else out
 
@@ -187,6 +193,15 @@ def backward_config(b: int, c: int, h: int, w: int, o: int, num_sms: int = 132) 
                           ksplit, smem)
 
 
+def _window(x: torch.Tensor, row0: int, full_h: int | None) -> tuple[int, int]:
+    """(row0, full_h) of x's rows, checked: full_h defaults to x's height."""
+    h = x.shape[-2]
+    full_h = h if full_h is None else int(full_h)
+    if not 0 <= row0 <= full_h - h:
+        raise ValueError(f"rows [{row0}, {row0 + h}) of x do not lie in an image {full_h} rows high")
+    return int(row0), full_h
+
+
 def _check(x, mean, var, mask_src, gamma, beta) -> None:
     if x.ndim != 4 or mask_src.ndim != 4 or gamma.ndim != 3 or beta.ndim != 3:
         raise ValueError("isla_norm wants x (b,c,h,w), mask_src (b,o,hs,ws), gamma/beta (b,o,c)")
@@ -237,7 +252,7 @@ def _kernel():
     lib = _build.library("isla_norm")
     fn = lib.isla_norm_forward
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i,
                    i, i, i, i, i, i, p]
     fn.restype = i
     return lib, fn
@@ -248,8 +263,8 @@ def _backward_kernel():
     lib = _build.library("isla_norm_bwd")
     fn = lib.isla_norm_backward
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i,
-                   i, i, i, i, i, i, p]
+    fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                   ctypes.c_float, i, i, i, i, i, i, i, p]
     fn.restype = i
     return lib, fn
 
@@ -259,7 +274,8 @@ def _finish_kernel():
     lib = _build.library("isla_norm_bwd")
     fn = lib.isla_norm_backward_finish
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, i, i,
+                   p]
     fn.restype = i
     return lib, fn
 
@@ -269,7 +285,8 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Tensor:
+def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu, row0=0,
+                    full_h=None) -> torch.Tensor:
     b, c, h, w = x.shape
     o, hs, ws = mask_src.shape[1:]
     out = torch.empty_like(x)
@@ -280,7 +297,8 @@ def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Ten
     lib, fn = _kernel()
     err = fn(int(x.dtype == torch.bfloat16), int(aligned), x.data_ptr(), mean.data_ptr(),
              var.data_ptr(), mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-             out.data_ptr(), b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.tp, cfg.threads,
+             out.data_ptr(), b, c, h, w, o, hs, ws, row0, full_h or h, float(eps), int(relu),
+             cfg.tp, cfg.threads,
              cfg.cc, cfg.n_groups, cfg.chunks_per_group, cfg.smem_bytes,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "isla_norm launch")
@@ -294,19 +312,20 @@ def _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu) -> torch.Ten
 # implementation (counted as an eager call is). Each has a CUDA implementation
 # only and a fake one (shapes and dtypes) for tracing. CPU tensors never reach
 # them: ``isla_norm`` and ``isla_norm_backward`` take the plain versions there,
-# so a trace on the CPU decomposes into plain ops.
+# so a trace on the CPU decomposes into plain ops. The row window's ``full_h``
+# 0 means x's own height (the whole image).
 OPS_NAMESPACE = "layout2img_tpu_torch"
 
 
 @torch.library.custom_op(f"{OPS_NAMESPACE}::isla_norm", mutates_args=(), device_types="cuda")
 def _isla_norm_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
                   mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  relu: bool) -> torch.Tensor:
-    return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu)
+                  relu: bool, row0: int = 0, full_h: int = 0) -> torch.Tensor:
+    return _launch_forward(x, mean, var, eps, mask_src, gamma, beta, relu, row0, full_h)
 
 
 @_isla_norm_op.register_fake
-def _(x, mean, var, eps, mask_src, gamma, beta, relu):
+def _(x, mean, var, eps, mask_src, gamma, beta, relu, row0=0, full_h=0):
     return torch.empty_like(x)
 
 
@@ -314,7 +333,7 @@ def _(x, mean, var, eps, mask_src, gamma, beta, relu):
                          device_types="cuda")
 def _isla_norm_backward_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
                            mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                           grad: torch.Tensor, relu: bool
+                           grad: torch.Tensor, relu: bool, row0: int = 0, full_h: int = 0
                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                                       torch.Tensor, torch.Tensor]:
     b, c, h, w = x.shape
@@ -322,12 +341,13 @@ def _isla_norm_backward_op(x: torch.Tensor, mean: torch.Tensor, var: torch.Tenso
     cfg = backward_config(b, c, h, w, o, _num_sms(x.device.index))
     _check_int32(part_stats=b * cfg.n_spans * 2 * c, part_gb=b * cfg.n_spans * 2 * o * c,
                  part_dm=cfg.n_groups * b * o * h * w)
-    dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg)
-    return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma))
+    dx, *parts = _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg,
+                                  row0, full_h)
+    return (dx, *_launch_finish(*parts, var, eps, mask_src, gamma, row0, full_h))
 
 
 @_isla_norm_backward_op.register_fake
-def _(x, mean, var, eps, mask_src, gamma, beta, grad, relu):
+def _(x, mean, var, eps, mask_src, gamma, beta, grad, relu, row0=0, full_h=0):
     stat = x.new_empty(x.shape[1], dtype=torch.float32)
     return (torch.empty_like(x), stat, torch.empty_like(stat), torch.empty_like(mask_src),
             torch.empty_like(gamma), torch.empty_like(beta))
@@ -335,20 +355,20 @@ def _(x, mean, var, eps, mask_src, gamma, beta, grad, relu):
 
 def _save_inputs(ctx, inputs, output) -> None:
     """Nothing of the forward is saved but its inputs."""
-    x, mean, var, eps, mask_src, gamma, beta, relu = inputs
+    x, mean, var, eps, mask_src, gamma, beta, relu, *window = inputs  # window: row0, full_h
     ctx.save_for_backward(x, mean, var, mask_src, gamma, beta)
-    ctx.eps, ctx.relu = eps, relu
+    ctx.eps, ctx.relu, ctx.window = eps, relu, window
 
 
 def _isla_norm_grads(ctx, grad):
     """The gradients of x, mean, var, mask_src, gamma and beta by the
     backward's two kernels (mean and var are inputs: autograd carries their
     gradients back into x where they are batch statistics); None for eps,
-    relu and every input that needs none."""
+    relu, the window and every input that needs none."""
     x, mean, var, mask_src, gamma, beta = ctx.saved_tensors
     dx, dmean, dvar, dmask, dgamma, dbeta = _isla_norm_backward_op(
-        x, mean, var, ctx.eps, mask_src, gamma, beta, grad.contiguous(), ctx.relu)
-    grads = (dx, dmean, dvar, None, dmask, dgamma, dbeta, None)
+        x, mean, var, ctx.eps, mask_src, gamma, beta, grad.contiguous(), ctx.relu, *ctx.window)
+    grads = (dx, dmean, dvar, None, dmask, dgamma, dbeta, None, None, None)
     return tuple(g if need else None for g, need in zip(grads, ctx.needs_input_grad))
 
 
@@ -357,11 +377,12 @@ _isla_norm_op.register_autograd(_isla_norm_grads, setup_context=_save_inputs)
 
 def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
               mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-              relu: bool = False) -> torch.Tensor:
+              relu: bool = False, row0: int = 0, full_h: int | None = None) -> torch.Tensor:
     """Fused ISLA norm. x (b, c, h, w); mean, var (c,) f32, the running or the
     batch statistics; mask_src (b, o, hs, ws), the stage mask at its own size;
     gamma, beta (b, o, c). x, mask_src, gamma and beta share one dtype (f32 or
-    bf16).
+    bf16). x holds rows ``[row0, row0 + h)`` of an image ``full_h`` rows high
+    (default: the whole image).
 
     CUDA tensors go through the ``layout2img_tpu_torch::isla_norm`` operator:
     the forward kernel (counted in ``isla_norm.launches``) and, under
@@ -369,36 +390,43 @@ def isla_norm(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float
     kernels want contiguous inputs, f32 statistics and at most 64 objects,
     and raise otherwise. CPU tensors run ``isla_norm_plain``."""
     _check(x, mean, var, mask_src, gamma, beta)
+    row0, full_h = _window(x, row0, full_h)
     if x.device.type == "cpu":
-        return isla_norm_plain(x, mean, var, eps, mask_src, gamma, beta, relu)
+        return isla_norm_plain(x, mean, var, eps, mask_src, gamma, beta, relu, row0, full_h)
     if x.device.type != "cuda":
         raise ValueError(f"isla_norm has no kernel for device {x.device}")
     _check_cuda((x, mean, var, mask_src, gamma, beta), mean, var, mask_src.shape[1])
-    return _isla_norm_op(x, mean, var, float(eps), mask_src, gamma, beta, bool(relu))
+    return _isla_norm_op(x, mean, var, float(eps), mask_src, gamma, beta, bool(relu), row0, full_h)
 
 
 isla_norm.launches = 0
 
 
-def _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu=False):
+def _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu=False, row0=0,
+                    full_h=None):
     """The backward's plain version: autograd of ``isla_norm_plain`` with
     mean and var as inputs of their own, so the x gradient is the direct part."""
     leaves = [t.detach().requires_grad_(True) for t in (x, mean, var, mask_src, gamma, beta)]
     with torch.enable_grad():
-        out = isla_norm_plain(leaves[0], leaves[1], leaves[2], eps, *leaves[3:], relu=relu)
+        out = isla_norm_plain(leaves[0], leaves[1], leaves[2], eps, *leaves[3:], relu=relu,
+                              row0=row0, full_h=full_h)
         return torch.autograd.grad(out, leaves, grad)
 
 
 @functools.cache
-def _transposed_taps_np(out_size: int, in_size: int) -> tuple[np.ndarray, np.ndarray]:
+def _transposed_taps_np(out_size: int, in_size: int, row0: int = 0,
+                        count: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """The transposed 2-tap resize as a gather: for each source index s, the
     destination indices whose taps reach it, in ascending order, and the
     weight each reads s with, padded to one width with index 0 and weight 0.
     Taps and weights in f32 as ``csrc/isla_common.cuh::src_taps`` computes
-    them (half-pixel centres, clamped at both ends)."""
+    them (half-pixel centres, clamped at both ends). Only the ``count``
+    destinations from ``row0`` on count (a row shard's window), indexed from
+    ``row0``."""
+    count = out_size - row0 if count is None else count
     scale = np.float32(in_size) / np.float32(out_size)
-    src = np.maximum((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * scale
-                     - np.float32(0.5), np.float32(0.0))
+    dst = np.arange(row0, row0 + count, dtype=np.float32)
+    src = np.maximum((dst + np.float32(0.5)) * scale - np.float32(0.5), np.float32(0.0))
     i0 = np.minimum(src.astype(np.int64), in_size - 1)
     i1 = np.minimum(i0 + 1, in_size - 1)
     w1 = src - i0.astype(np.float32)
@@ -413,25 +441,29 @@ def _transposed_taps_np(out_size: int, in_size: int) -> tuple[np.ndarray, np.nda
     return idx, wgt
 
 
-def _transposed_taps(out_size: int, in_size: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def _transposed_taps(out_size: int, in_size: int, device, row0: int = 0,
+                     count: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """``_transposed_taps_np`` on ``device``, kept there as real tensors only
     (``ops/interp.py::device_table``)."""
-    idx, wgt = _transposed_taps_np(out_size, in_size)
-    key = ("transposed_taps", out_size, in_size)
+    idx, wgt = _transposed_taps_np(out_size, in_size, row0, count)
+    key = ("transposed_taps", out_size, in_size, row0, count)
     return (device_table(key + ("idx",), idx, torch.long, device),
             device_table(key + ("wgt",), wgt, torch.float32, device))
 
 
-def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int]) -> torch.Tensor:
+def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int], row0: int = 0,
+                                    full_h: int | None = None) -> torch.Tensor:
     """The transpose of the 2-tap bilinear resize (``ops/interp.py::
     resize_bilinear``, align_corners=False) of dm (..., h, w) onto the source
     grid ``src_hw``, as the finishing kernel computes it: rows first (each
     source row sums the destination rows that reach it, in ascending
-    order), then columns. f32."""
+    order), then columns. f32. dm may be rows ``[row0, row0 + h)`` of a
+    resize to ``full_h`` rows: the result is then those rows' part."""
     h, w = dm.shape[-2:]
     out = dm.float()
-    for dim, (n_out, n_in) in ((-2, (h, src_hw[0])), (-1, (w, src_hw[1]))):
-        idx, wgt = _transposed_taps(n_out, n_in, dm.device)
+    for dim, n_out, n_in, start, count in ((-2, full_h or h, src_hw[0], row0, h),
+                                           (-1, w, src_hw[1], 0, w)):
+        idx, wgt = _transposed_taps(n_out, n_in, dm.device, start, count)
         shape = [1] * out.ndim
         shape[dim] = n_in
         acc = torch.zeros((*out.shape[:dim % out.ndim], n_in, *out.shape[dim % out.ndim + 1:]),
@@ -444,7 +476,8 @@ def resize_bilinear_gather_backward(dm: torch.Tensor, src_hw: tuple[int, int]) -
 
 def finish_backward_plain(part_stats: torch.Tensor, part_gb: torch.Tensor, part_dm: torch.Tensor,
                           var: torch.Tensor, eps: float, src_hw: tuple[int, int],
-                          dtypes: tuple[torch.dtype, torch.dtype, torch.dtype]):
+                          dtypes: tuple[torch.dtype, torch.dtype, torch.dtype], row0: int = 0,
+                          full_h: int | None = None):
     """Plain version of the finishing kernel: the backward kernel's partial
     buffers (part_stats (b, spans, 2, c), part_gb (b, spans, 2, o, c),
     part_dm (groups, b, o, h, w), f32) into (dmean, dvar, dmask_src, dgamma,
@@ -452,16 +485,18 @@ def finish_backward_plain(part_stats: torch.Tensor, part_gb: torch.Tensor, part_
     r = 1 / sqrt(var + eps), f32; dmask_src, dgamma and dbeta in ``dtypes``.
     The sums over spans, batches and groups are torch's (another order than
     the kernel's: equal to round-off); the transposed resize is the
-    kernel's gather (``resize_bilinear_gather_backward``)."""
+    kernel's gather (``resize_bilinear_gather_backward``, on the row window
+    ``row0``, ``full_h``)."""
     r = 1.0 / torch.sqrt(var + eps)
     sums = part_stats.sum(dim=(0, 1))
     gb = part_gb.sum(dim=1)
-    dmask = resize_bilinear_gather_backward(part_dm.sum(dim=0), src_hw)
+    dmask = resize_bilinear_gather_backward(part_dm.sum(dim=0), src_hw, row0, full_h)
     return (-r * sums[0], -0.5 * r * r * sums[1], dmask.to(dtypes[0]), gb[:, 0].to(dtypes[1]),
             gb[:, 1].to(dtypes[2]))
 
 
-def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: BackwardConfig):
+def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: BackwardConfig,
+                     row0=0, full_h=None):
     """One launch of the backward kernel; returns dx_direct and the three
     partial-sum buffers."""
     b, c, h, w = x.shape
@@ -476,7 +511,8 @@ def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: 
     err = fn(int(x.dtype == torch.bfloat16), int(aligned), x.data_ptr(), mean.data_ptr(),
              var.data_ptr(), mask_src.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
              grad.data_ptr(), dx.data_ptr(), part_stats.data_ptr(), part_gb.data_ptr(),
-             part_dm.data_ptr(), b, c, h, w, o, hs, ws, float(eps), int(relu), cfg.threads, cfg.tp,
+             part_dm.data_ptr(), b, c, h, w, o, hs, ws, row0, full_h or h, float(eps), int(relu),
+             cfg.threads, cfg.tp,
              cfg.tiles_per_span, cfg.n_groups, cfg.chunks_per_group, cfg.ksplit,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "isla_norm backward launch")
@@ -484,7 +520,7 @@ def _launch_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, cfg: 
     return dx, part_stats, part_gb, part_dm
 
 
-def _launch_finish(part_stats, part_gb, part_dm, var, eps, mask_src, gamma):
+def _launch_finish(part_stats, part_gb, part_dm, var, eps, mask_src, gamma, row0=0, full_h=None):
     """One launch of the finishing kernel; returns (dmean, dvar, dmask_src,
     dgamma, dbeta)."""
     groups, b, o, h, w = part_dm.shape
@@ -496,8 +532,9 @@ def _launch_finish(part_stats, part_gb, part_dm, var, eps, mask_src, gamma):
     lib, fn = _finish_kernel()
     err = fn(int(gamma.dtype == torch.bfloat16), part_stats.data_ptr(), part_gb.data_ptr(),
              part_dm.data_ptr(), var.data_ptr(), dmean.data_ptr(), dvar.data_ptr(),
-             dmask.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, c, h, w, o, hs, ws,
-             float(eps), part_stats.shape[1], groups, torch.cuda.current_stream(var.device).cuda_stream)
+             dmask.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), b, c, h, w, o, hs, ws, row0,
+             full_h or h, float(eps), part_stats.shape[1], groups,
+             torch.cuda.current_stream(var.device).cuda_stream)
     _build.check(lib, err, "isla_norm backward finishing launch")
     isla_norm_backward.finish_launches += 1
     return dmean, dvar, dmask, dgamma, dbeta
@@ -505,11 +542,13 @@ def _launch_finish(part_stats, part_gb, part_dm, var, eps, mask_src, gamma):
 
 def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, eps: float,
                        mask_src: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                       grad: torch.Tensor, relu: bool = False):
+                       grad: torch.Tensor, relu: bool = False, row0: int = 0,
+                       full_h: int | None = None):
     """Gradients of ``isla_norm`` given its output gradient ``grad`` (x's shape
     and dtype): (dx_direct, dmean, dvar, dmask_src, dgamma, dbeta). dx_direct
     is the part through y alone; autograd adds the parts through the
-    statistics. dmean and dvar are f32, the rest in their input's dtype.
+    statistics. dmean and dvar are f32, the rest in their input's dtype. On
+    a row window (``row0``, ``full_h``) the gradients are this shard's parts.
 
     CUDA tensors go through the ``layout2img_tpu_torch::isla_norm_backward``
     operator: two launches of ``csrc/isla_norm_bwd.cu`` and nothing else on
@@ -522,13 +561,14 @@ def isla_norm_backward(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, e
     if grad.shape != x.shape or grad.dtype != x.dtype or grad.device != x.device:
         raise ValueError(f"grad {tuple(grad.shape)} {grad.dtype} does not match x "
                          f"{tuple(x.shape)} {x.dtype}")
+    row0, full_h = _window(x, row0, full_h)
     if x.device.type == "cpu":
-        return _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu)
+        return _plain_backward(x, mean, var, eps, mask_src, gamma, beta, grad, relu, row0, full_h)
     if x.device.type != "cuda":
         raise ValueError(f"isla_norm_backward has no kernel for device {x.device}")
     _check_cuda((x, mean, var, mask_src, gamma, beta, grad), mean, var, mask_src.shape[1])
     return _isla_norm_backward_op(x, mean, var, float(eps), mask_src, gamma, beta, grad,
-                                  bool(relu))
+                                  bool(relu), row0, full_h)
 
 
 isla_norm_backward.launches = 0

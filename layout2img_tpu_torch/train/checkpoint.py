@@ -16,7 +16,10 @@ background thread (one process only).
 Under a data-parallel mesh (``parallel/mesh.py``) the state is replicated:
 ``save`` is called on every rank, and rank 0 writes between two barriers;
 ``restore`` reads on every rank and checks that the ranks restored the same
-step.
+step. In the 2-D mesh's tensor mode the ranks of a model group hold shards
+(``sharded_leaves``): ``save`` gathers them whole first, so the file is the
+one-process format, and ``restore`` cuts each rank's shards from it. A
+checkpoint so moves between one process, the 1-D mesh and either 2-D mode.
 """
 
 from __future__ import annotations
@@ -46,6 +49,50 @@ def state_dict(state: GANTrainState) -> dict:
     return out
 
 
+def sharded_leaves(state: GANTrainState) -> dict[str, int]:
+    """{name: sharded dim} of the tensor-mode shards among the state's
+    tensors, named as ``parallel/mesh.py::state_tensors`` names them: the
+    sharded parameters, their Adam moments and their EMA (empty when nothing
+    is sharded)."""
+    out = {}
+    for key, net, opt in (("generator", state.generator, "g_opt"),
+                          ("discriminator", state.discriminator, "d_opt")):
+        dims = data_mesh.shard_dims(net)
+        out.update({f"{key}.{name}": d for name, d in dims.items()})
+        for i, (name, _) in enumerate(net.named_parameters()):
+            if name in dims:
+                out[f"{opt}.state.{i}.exp_avg"] = out[f"{opt}.state.{i}.exp_avg_sq"] = dims[name]
+                if key == "generator":
+                    out[f"ema.{name}"] = dims[name]
+    return out
+
+
+def _map_named(tree, fn, prefix: str = ""):
+    """``fn(name, tensor)`` for each tensor of nested dicts and lists, named
+    by dotted path as ``parallel/mesh.py::flat_tensors`` names them."""
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix, tree)
+    if isinstance(tree, dict):
+        return {k: _map_named(v, fn, f"{prefix}.{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_named(v, fn, f"{prefix}.{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return tree
+
+
+def whole_tensors(tree, dims: dict[str, int]):
+    """``tree`` with the tensors that ``dims`` names gathered whole from the
+    model group's shards (every rank of the group calls it)."""
+    if not dims:
+        return tree
+    return _map_named(tree, lambda k, t: data_mesh.gather_shard(t, dims[k]) if k in dims else t)
+
+
+def whole_state_dict(state: GANTrainState) -> dict:
+    """``state_dict`` in the one-process format: tensor-mode shards gathered."""
+    return whole_tensors(state_dict(state), sharded_leaves(state))
+
+
 def _map_tensors(tree, fn):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
@@ -73,9 +120,10 @@ class CheckpointManager:
 
     def save(self, state: GANTrainState) -> None:
         mesh = data_mesh.current()
+        content = whole_state_dict(state)
         mesh.barrier()
         if mesh.rank == 0:
-            self.write(state_dict(state), int(state.step))
+            self.write(content, int(state.step))
         mesh.barrier()
 
     def write(self, content: dict, step: int) -> None:
@@ -108,6 +156,9 @@ class CheckpointManager:
         restored generator's parameters. Any other mismatch, such as another
         ``--ch``, raises as ``load_state_dict`` raises."""
         ck = self.read(step)
+        dims = sharded_leaves(state)
+        if dims:
+            ck = _map_named(ck, lambda k, t: data_mesh.own_shard(t, dims[k]) if k in dims else t)
         state.generator.load_state_dict(ck["generator"], strict=True)
         state.discriminator.load_state_dict(ck["discriminator"], strict=True)
         state.g_opt.load_state_dict(ck["g_opt"])

@@ -47,6 +47,12 @@ shard of the global batch; z and z_im are drawn for the global batch and
 cut to the rank's rows (before any budget compaction); the BN statistics,
 masked means, gradients and metrics are global; ``fused_d`` and the SN power
 iterations run on each rank on replicated weights, so they stay bit-equal.
+On the 2-D mesh the batch shard, latents and dropout masks are the data
+group's. In tensor mode the step is unchanged: the sharded layers gather
+their outputs. In spatial mode the step runs on row shards
+(``row_shards``): each rank keeps its rows of the real images, G returns its
+rows of the fake ones, D's scores are whole, and the pixel and VGG losses'
+means are model-summed; every rank's gradients are parts, summed over all W.
 
 Gradients are taken with ``torch.autograd.grad``, so D's gradient from the
 G loss never reaches D's optimizer, and a parameter with no gradient gets a
@@ -77,7 +83,7 @@ def _apply_grads(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: t
     step the optimizer."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    for p, g in zip(params, data_mesh.current().all_reduce_grads(grads)):
+    for p, g in zip(params, data_mesh.current().all_reduce_grads(grads, params)):
         p.grad = g
     opt.step()
 
@@ -85,10 +91,11 @@ def _apply_grads(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: t
 def global_normal(rng: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """This rank's rows of a standard normal draw for the global batch:
-    ``shape[0]`` rows per rank, W times as many drawn from ``rng``, so each
-    rank draws what one process draws at the global batch."""
+    ``shape[0]`` rows per data group, as many times more drawn from ``rng``
+    as there are groups, so each rank draws what one process draws at the
+    global batch."""
     mesh = data_mesh.current()
-    full = torch.randn((shape[0] * mesh.world, *shape[1:]), generator=rng, device=rng.device,
+    full = torch.randn((shape[0] * mesh.data_size, *shape[1:]), generator=rng, device=rng.device,
                        dtype=dtype)
     return mesh.rows(full).to(device)
 
@@ -151,7 +158,13 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
         return _call(disc, params, *args)
 
     def with_latents(batch: dict, z: torch.Tensor, z_im: torch.Tensor) -> dict[str, torch.Tensor]:
+        with data_mesh.row_shards(data_mesh.current().mode == "spatial"):
+            return step(batch, z, z_im)
+
+    def step(batch: dict, z: torch.Tensor, z_im: torch.Tensor) -> dict[str, torch.Tensor]:
         images, boxes, labels = batch["images"].to(dtype), batch["boxes"], batch["labels"]
+        if data_mesh.rows_sharded():
+            images = data_mesh.split_rows(images)
         z, z_im = z.to(dtype), z_im.to(dtype)
         b, o = labels.shape
         budget = {}
@@ -204,7 +217,7 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
             metrics["g_loss_app"] = g_adv(out_g["app"], valid)
             g_loss = g_loss + config.lamb_app * metrics["g_loss_app"]
         if config.use_pixel_loss:
-            metrics["pixel_loss"] = (fake - images).abs().to(torch.float32).mean()
+            metrics["pixel_loss"] = data_mesh.row_mean((fake - images).abs().to(torch.float32))
             g_loss = g_loss + metrics["pixel_loss"]
         if config.use_vgg_loss and vgg_loss is not None:
             # under mixed precision the VGG stack runs in bf16 too

@@ -293,22 +293,32 @@ def test_nan_guard_keeps_the_last_good_checkpoint(tmp_path, caplog, case):
                                        (["--model_parallel", "2"], 6), (["--mp_mode", "spatial"], 6),
                                        (["--preempt_sync_every", "5"], 6)])
 def test_later_slice_flags_name_the_roadmap(tmp_path, flag, item):
-    """The 2-D mesh's flags (item 6) raise; ``--l2i_fusion`` (item 5,
-    ported) is the layout2im fusion flag, checked against its choices;
-    ``--preempt_sync_every`` (item 6's data mesh, ported) is an int that
-    nothing refuses."""
+    """The flags of ported ROADMAP items: ``--l2i_fusion`` (item 5) is the
+    layout2im fusion flag, checked against its choices;
+    ``--preempt_sync_every`` (item 6's data mesh) is an int that nothing
+    refuses; the 2-D mesh's (item 6): ``--model_parallel 2`` in one process
+    is refused, naming both numbers, and ``--model_parallel 2 --mp_mode
+    spatial`` trains Ours-ED as before, logging that the flags change
+    nothing for it (the JAX CLI ignores them there)."""
     if flag[0] in ("--l2i_fusion", "--preempt_sync_every"):
         args = train_cli.parse_args([*SYNTH, *flag])
-        train_cli.refuse_later_slices(args)
         name, bad = (("l2i_fusion", "no_such_fusion") if item == 5
                      else ("preempt_sync_every", "often"))
         assert str(getattr(args, name)) == flag[1]
         with pytest.raises(SystemExit):
             train_cli.parse_args([*SYNTH, flag[0], bad])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 .*item {item}"):
-        train_cli.main([*SYNTH, "--out_path", str(tmp_path / "o"), *flag])
-    assert not (tmp_path / "o").exists()
+    out = str(tmp_path / "o")
+    if flag[0] == "--model_parallel":
+        with pytest.raises(SystemExit, match="1 ranks not divisible by --model_parallel 2"):
+            train_cli.main([*SYNTH, "--out_path", out, *flag])
+        return
+    train_cli.main([*SYNTH, "--out_path", out, "--model", "ours_ed", "--steps", "1",
+                    "--model_parallel", "2", *flag])
+    log = open(os.path.join(_run_dir(out, model="ours_ed"), "log.txt")).read()
+    assert "--model_parallel 2 (--mp_mode spatial) changes nothing for --model ours_ed" in log
+    ckpt = CheckpointManager(os.path.join(_run_dir(out, model="ours_ed"), "ckpt"))
+    assert ckpt.all_steps() == [1]
 
 
 def test_img_size_guard(tmp_path):

@@ -54,13 +54,14 @@ def test_eval_every_logs_rel_fid_and_trains_the_same_generator(tmp_path):
 
 def test_eval_flags_parse_with_the_jax_defaults():
     """The three flags are ported: defaults as in the JAX CLI (``--eval_n``
-    64), and ``refuse_later_slices`` accepts them set."""
+    64), and set values parse; so do the 2-D mesh's, the last flags a later
+    slice ported, with the JAX CLI's defaults."""
     args = train_cli.parse_args([])
     assert (args.eval_every, args.eval_n, args.inception_weights) == (0, 64, "")
     args = train_cli.parse_args(["--eval_every", "5", "--eval_n", "8",
                                  "--inception_weights", "i.pth"])
     assert (args.eval_every, args.eval_n, args.inception_weights) == (5, 8, "i.pth")
-    train_cli.refuse_later_slices(args)
+    assert (args.model_parallel, args.mp_mode) == (1, "tensor")
 
 
 @pytest.mark.parametrize("eval_n,want_batches", [(1, 1), (3, 2), (4, 2)])

@@ -331,16 +331,20 @@ def test_isla_forward_under_no_grad_launches_no_backward(cuda_device):
 def test_isla_operators_pass_opcheck(cuda_device, dtype):
     """Both kernels as ``torch.library`` operators: schema, fake
     implementations, the autograd registration and AOT dispatch, by
-    ``torch.library.opcheck`` on the card."""
+    ``torch.library.opcheck`` on the card, on the whole map (the window's
+    defaults) and on rows [4, 12) of a 16-row image."""
     x, mean, var, eps, mask, gamma, beta = _inputs(0, 2, 8, 64, (8, 8), (16, 16), dtype,
                                                    cuda_device)
     grad = torch.randn_like(x)
     ops = torch.ops.layout2img_tpu_torch
-    torch.library.opcheck(ops.isla_norm_backward.default,
-                          (x, mean, var, eps, mask, gamma, beta, grad, True))
+    for window in ((), (4, 16)):
+        torch.library.opcheck(ops.isla_norm_backward.default,
+                              (x, mean, var, eps, mask, gamma, beta, grad, True, *window))
     for t in (x, var, mask, gamma):
         t.requires_grad_(True)
-    torch.library.opcheck(ops.isla_norm.default, (x, mean, var, eps, mask, gamma, beta, True))
+    for window in ((), (4, 16)):
+        torch.library.opcheck(ops.isla_norm.default,
+                              (x, mean, var, eps, mask, gamma, beta, True, *window))
 
 
 @pytest.mark.cuda
@@ -464,3 +468,62 @@ def test_checkpoint_round_trip_on_the_card_is_bit_exact(cuda_device, tmp_path, a
         a, b = ref.read(), mgr.read()
         for part in ("generator", "discriminator", "ema"):
             assert all(torch.equal(a[part][k], v) for k, v in b[part].items()), part
+
+
+# the row windows of the 2-D mesh's spatial mode: both halves (M = 2) of the
+# 128 px norm, one of its quarters (M = 4) and an odd window of an odd map
+WINDOWS = [((8, 64, (64, 128), (64, 64)), 0, 128), ((8, 64, (64, 128), (64, 64)), 64, 128),
+           ((8, 64, (32, 128), (64, 64)), 96, 128), ((2, 48, (4, 13), (5, 7)), 5, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,row0,full_h", WINDOWS)
+def test_isla_kernels_on_a_row_window(cuda_device, dtype, shape, row0, full_h, relu):
+    """Rows [row0, row0 + h) of an image full_h rows high: the forward kernel
+    against ``isla_norm_plain`` on the same window at the forward's bars,
+    and the backward's every gradient (the batch statistics of the window)
+    against autograd of the plain version at the backward's bars."""
+    b, c, hw, src_hw = shape
+    args = _inputs(row0 + c, b, 8, c, hw, src_hw, dtype, cuda_device)
+    window = dict(row0=row0, full_h=full_h)
+    got = isla_norm(*args, relu=relu, **window)
+    ref = isla_norm_plain(*args, relu=relu, **window).float()
+    err = (got.float() - ref).abs().max().item()
+    assert err <= TOL[dtype] * ref.abs().max().item(), err
+    x, _, _, _, mask, gamma, beta = args
+    grad = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda_device, dtype)
+    if relu:
+        pre = isla_norm_plain(x.float(), *batch_stats(x), 1e-5, mask.float(), gamma.float(),
+                              beta.float(), **window)
+        grad = grad.masked_fill(pre.abs() <= 1e-5 * pre.abs().max(), 0)
+    _, got = _grads_through_stats(lambda *a, **k: isla_norm(*a, **k, **window), x, mask, gamma,
+                                  beta, grad, relu)
+    _, want = _grads_through_stats(lambda *a, **k: isla_norm_plain(*a, **k, **window),
+                                   *(t.float() for t in (x, mask, gamma, beta, grad)), relu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("x", "mask_src", "gamma", "beta"), got, want):
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), (name, err, w.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_isla_backward_windows_sum_to_the_whole(cuda_device, dtype):
+    """The two halves' backward calls at the same statistics: their dx are the
+    whole call's rows, and their dmask_src, dgamma and dbeta parts sum to the
+    whole call's (f32 1e-5, bf16 2e-2 of max|whole|)."""
+    x, mean, var, eps, mask, gamma, beta = _inputs(7, 8, 8, 64, (128, 128), (64, 64), dtype,
+                                                   cuda_device)
+    grad = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda_device, dtype)
+    whole = isla_norm_backward(x, mean, var, eps, mask, gamma, beta, grad)
+    halves = [isla_norm_backward(x[:, :, r:r + 64].contiguous(), mean, var, eps, mask, gamma, beta,
+                                 grad[:, :, r:r + 64].contiguous(), row0=r, full_h=128)
+              for r in (0, 64)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    parts = [torch.cat([h[0] for h in halves], dim=2)] + [
+        sum(h[i].float() for h in halves) for i in (1, 2, 3, 4, 5)]
+    for name, got, want in zip(("dx", "dmean", "dvar", "dmask", "dgamma", "dbeta"), parts, whole):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item(), (name, err)

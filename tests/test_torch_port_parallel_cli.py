@@ -11,7 +11,11 @@ time limit of its own:
   0, and rank 0 saves that step (``--preempt_sync_every 1``);
 - ``--fault_inject_nan_at``, in that resumed run, stops both ranks, each
   with exit code 3, and the last good checkpoint stays the newest;
-- ``--model_parallel`` and ``--mp_mode`` still raise, naming ROADMAP §1 item 6;
+- the 2-D mesh: ``--model_parallel 2 --mp_mode spatial`` trains 2 steps on
+  the 2 ranks (one model group) and writes a checkpoint of whole tensors,
+  which ``--resume`` continues in one process from its step;
+  ``--model_parallel 3`` under 2 ranks is refused on both, naming both
+  numbers, and ``--mp_mode`` takes only tensor and spatial;
 - the launcher maps SLURM's variables and its own flags onto torchrun's,
   and a process group that does not form raises.
 """
@@ -108,10 +112,47 @@ def test_nan_guard_stops_every_rank(resumed):
     assert "non-finite metrics at step 5" in log
 
 
-@pytest.mark.parametrize("flag", [["--model_parallel", "2"], ["--mp_mode", "tensor"]])
-def test_model_parallel_flags_name_their_roadmap_item(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 'Slices still to port', item 6"):
-        train_cli.main(ARGS + flag)
+@pytest.mark.parametrize("flag", [["--model_parallel", "3"], ["--mp_mode", "other"]])
+def test_model_parallel_flags_name_their_roadmap_item(tmp_path, flag):
+    """The 2-D mesh's flags (ROADMAP §1 item 6) refuse what they cannot run."""
+    if flag[0] == "--mp_mode":
+        with pytest.raises(SystemExit):
+            train_cli.parse_args(ARGS + flag)
+        return
+    codes, _ = _run(tmp_path, flag + ["--steps", "1"], timeout=120)
+    assert codes == [1, 1]
+    for r in range(2):
+        assert (tmp_path / f"message.{r}").read_text() == \
+            "2 ranks not divisible by --model_parallel 3"
+
+
+def test_model_parallel_run_resumes_in_one_process(tmp_path):
+    """2 steps of the spatial mode on 2 ranks, checkpointed, then 1 more in
+    one process from that checkpoint, then 1 more in tensor mode on 2 ranks
+    from the one-process checkpoint (each rank cuts its shards from it), whose
+    checkpoint holds the same whole tensors."""
+    two = ["--model_parallel", "2", "--mp_mode", "spatial", "--steps_per_epoch", "2",
+           "--total_epoch", "1"]
+    codes, run_dir = _run(tmp_path, two, timeout=180)
+    assert codes == [0, 0]
+    assert _steps(run_dir) == [2]
+    assert _metric_steps(run_dir) == [1, 2]
+    assert "2-D mesh, spatial mode: 2 ranks = 1 data groups x model_parallel 2, batch 2 per " \
+           "model group, global batch 2" in (run_dir / "log.txt").read_text()
+    train_cli.main(ARGS + ["--out_path", str(tmp_path), "--resume", "--steps_per_epoch", "1",
+                           "--total_epoch", "1"])
+    assert "resumed from step 2" in (run_dir / "log.txt").read_text()
+    assert _steps(run_dir) == [2, 3]
+    assert _metric_steps(run_dir) == [1, 2, 3]
+    tensor = ["--model_parallel", "2", "--mp_mode", "tensor", "--resume", "--steps_per_epoch",
+              "1", "--total_epoch", "1"]
+    codes, _ = _run(tmp_path, tensor, timeout=180)
+    assert codes == [0, 0]
+    assert "resumed from step 3" in (run_dir / "log.txt").read_text()
+    assert _steps(run_dir) == [2, 3, 4]
+    one, two = (mesh.flat_tensors(torch.load(run_dir / "ckpt" / str(s) / "state.pt"))
+                for s in (3, 4))
+    assert {k: v.shape for k, v in one.items()} == {k: v.shape for k, v in two.items()}
 
 
 def test_launcher_maps_slurm_and_its_flags():

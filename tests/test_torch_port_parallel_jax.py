@@ -12,7 +12,12 @@ sharded batch), compiled at XLA's lowest backend optimization level; the
 port's ranks take JAX's latents through ``.with_latents``. Bars of the one-device parity tests: losses 2e-3;
 parameters within 2 lr of JAX's, under 1% of elements beyond 1e-6; SN
 vectors and BN statistics to 1e-5 (1e-4 for the PSP bottleneck BN and the
-app head's class embedding). Both ranks end with the same bits."""
+app head's class embedding). Both ranks end with the same bits. The same
+inputs also go through the port's 2-D mesh (one model group of 2 ranks, in
+tensor and then in spatial mode, ``torch_parallel_ranks.given2d_rank``),
+held to the same JAX step at the same bars: JAX's own tests hold its 2-D
+step to its one-device step (``tests/test_train_step.py``), so the one
+compile serves all three."""
 
 import numpy as np
 import pytest
@@ -74,6 +79,7 @@ def both(tmp_path_factory):
                 "d_sd": discriminator_state_dict_from_jax(d_vars), "batch": tb,
                 "z": torch.from_numpy(z), "z_im": torch.from_numpy(z_im)}, out / "inputs.pt")
     ctx = ranks.start_ranks(ranks.given_rank, 2, str(out / "inputs.pt"), str(out))
+    ctx2d = ranks.start_ranks(ranks.given2d_rank, 2, str(out / "inputs.pt"), str(out))
     try:
         mesh = make_mesh(jax.devices("cpu")[:2])
         jbatch = {"images": images, "boxes": batch["boxes"], "labels": batch["labels"], "z": z,
@@ -89,11 +95,13 @@ def both(tmp_path_factory):
                 "metrics": {k: float(v) for k, v in metrics.items()}}
     finally:
         ranks.wait_ranks(ctx, timeout=60)
-    return want, [torch.load(out / f"given.{r}.pt") for r in range(2)]
+        ranks.wait_ranks(ctx2d, timeout=60)
+    return (want, [torch.load(out / f"given.{r}.pt") for r in range(2)],
+            {mode: torch.load(out / f"given2d.{mode}.pt") for mode in ("tensor", "spatial")})
 
 
 def test_two_rank_losses_match_the_jax_mesh_step(both):
-    want, got = both
+    want, got, _ = both
     assert set(got[0]["metrics"]) == set(want["metrics"])
     for k, v in want["metrics"].items():
         assert abs(got[0]["metrics"][k] - v) <= 2e-3, (k, got[0]["metrics"][k], v)
@@ -102,11 +110,33 @@ def test_two_rank_losses_match_the_jax_mesh_step(both):
 
 @pytest.mark.parametrize("net", ["generator", "discriminator"])
 def test_two_rank_params_and_state_match_the_jax_mesh_step(both, net):
-    want, got = both
-    beyond = total = 0
+    want, got, _ = both
     for name, t in got[0][net].items():
         assert torch.equal(t, got[1][net][name]), f"{name} differs across the ranks"
-        w = want[net][name].numpy()
+    _hold_net(got[0][net], want[net])
+
+
+@pytest.mark.parametrize("mode", ["tensor", "spatial"])
+def test_mesh2d_losses_match_the_jax_mesh_step(both, mode):
+    want, _, got = both
+    assert set(got[mode]["metrics"]) == set(want["metrics"])
+    for k, v in want["metrics"].items():
+        assert abs(got[mode]["metrics"][k] - v) <= 2e-3, (k, got[mode]["metrics"][k], v)
+
+
+@pytest.mark.parametrize("mode", ["tensor", "spatial"])
+@pytest.mark.parametrize("net", ["generator", "discriminator"])
+def test_mesh2d_params_and_state_match_the_jax_mesh_step(both, mode, net):
+    """The 2-D mesh's networks, gathered whole, against JAX's."""
+    want, _, got = both
+    _hold_net(got[mode][net], want[net])
+
+
+def _hold_net(got: dict, want: dict) -> None:
+    """A state dict against JAX's converted one at the parity tests' bars."""
+    beyond = total = 0
+    for name, t in got.items():
+        w = want[name].numpy()
         if name.endswith(("weight_u", "running_mean", "running_var")):
             loose = name.startswith(("res4.conv_mask.0.bottleneck.", "l_y_app."))
             np.testing.assert_allclose(t.numpy(), w, atol=1e-4 if loose else 1e-5, rtol=0,

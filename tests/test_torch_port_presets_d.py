@@ -138,14 +138,14 @@ def test_roi_routing(monkeypatch, preset, calls):
     seen = []
     single, dual = discriminators.roi_align, discriminators.dual_scale_roi_align
 
-    def rec_single(features, boxes, out_size, scale):
+    def rec_single(features, boxes, out_size, scale, *rows):
         seen.append(("roi_align", (scale,), features.shape[-1]))
-        return single(features, boxes, out_size, scale)
+        return single(features, boxes, out_size, scale, *rows)
 
-    def rec_dual(small, large, boxes, out_size, s_small, s_large, threshold):
+    def rec_dual(small, large, boxes, out_size, s_small, s_large, threshold, *rows):
         seen.append(("dual", (s_small, s_large, threshold), small.shape[-1]))
         assert large.shape[-1] == small.shape[-1] // 2
-        return dual(small, large, boxes, out_size, s_small, s_large, threshold)
+        return dual(small, large, boxes, out_size, s_small, s_large, threshold, *rows)
 
     monkeypatch.setattr(discriminators, "roi_align", rec_single)
     monkeypatch.setattr(discriminators, "dual_scale_roi_align", rec_dual)

@@ -128,9 +128,9 @@ def test_part_norm_is_three_isla_calls(part_norm, monkeypatch):
     _, _, x, vectors, mask, _, norm = part_norm
     calls, real = [], norms.isla_norm
 
-    def rec(x, mean, var, eps, m, gamma, beta, relu=False):
+    def rec(x, mean, var, eps, m, gamma, beta, relu=False, **window):
         calls.append((tuple(m.shape), m.is_contiguous(), gamma.is_contiguous(), relu))
-        return real(x, mean, var, eps, m, gamma, beta, relu=relu)
+        return real(x, mean, var, eps, m, gamma, beta, relu=relu, **window)
 
     monkeypatch.setattr(norms, "isla_norm", rec)
     with torch.no_grad():

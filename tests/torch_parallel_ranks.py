@@ -309,7 +309,8 @@ def _sharded_inception(mesh) -> dict:
 
 def cli_rank(rank: int, argv: list[str], out_dir: str) -> None:
     """Rank program: ``cli.train.main(argv)``; its exit code goes to
-    ``exit.<rank>`` (0 when it returns)."""
+    ``exit.<rank>`` (0 when it returns), and the message of an exit with
+    one to ``message.<rank>``."""
     from layout2img_tpu_torch.cli import train
 
     code = 0
@@ -317,6 +318,9 @@ def cli_rank(rank: int, argv: list[str], out_dir: str) -> None:
         train.main(argv)
     except SystemExit as e:
         code = e.code if isinstance(e.code, int) else 1
+        if not isinstance(e.code, int):
+            with open(os.path.join(out_dir, f"message.{rank}"), "w") as f:
+                f.write(str(e.code))
     with open(os.path.join(out_dir, f"exit.{rank}"), "w") as f:
         f.write(str(code))
 
@@ -407,3 +411,330 @@ def given_rank(rank: int, inputs: str, out_dir: str) -> None:
                 "generator": gen.state_dict(), "discriminator": disc.state_dict()},
                os.path.join(out_dir, f"given.{rank}.pt"))
     data_mesh.shutdown()
+
+
+# ---- the 2-D (data, model) mesh ----
+
+# name: (mode, TrainConfig fields, steps); the one-process references run the
+# same configuration on the whole global batch
+MESH2D_CONFIGS = {
+    "tensor_ema": ("tensor", dict(ema_decay=0.999), 2),
+    "tensor_remat": ("tensor", dict(remat="gd"), 1),
+    "spatial_vgg": ("spatial", dict(use_vgg_loss=True), 2),
+    "spatial_mixed": ("spatial", dict(mixed_precision=True), 1),
+}
+MESH2D_2X2 = ("tensor_ema", "spatial_vgg")  # one step each on 2 data groups x M = 2
+B_2D = 4  # the global batch of both meshes
+
+
+def mesh2d_state(name: str):
+    """(state, config, VGG loss or None) of ``MESH2D_CONFIGS[name]`` from seeded draws."""
+    from layout2img_tpu_torch.losses.perceptual import VGGLoss
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.utils.convert import init_discriminator, init_generator, init_vgg
+
+    _, fields, _ = MESH2D_CONFIGS[name]
+    gen = init_generator(0, NC, preset="ours_d_context128", device="cpu", ch=CH, image_size=IMG)
+    disc = init_discriminator(1, NC, preset="d128_app", device="cpu", ch=CH, image_size=IMG)
+    cfg = TrainConfig(**{"use_vgg_loss": False, **fields})
+    vgg = VGGLoss(init_vgg(2, device="cpu")) if cfg.use_vgg_loss else None
+    return create_train_state(gen, disc, cfg), cfg, vgg
+
+
+def run_mesh2d(state, cfg, vgg, batch: dict, steps: int, mesh=None) -> list[dict]:
+    """``run_lostgan`` with the VGG loss, the state gathered whole after each
+    step (``train/checkpoint.py::whole_state_dict``); on a ``mesh``, also
+    whether each rank then holds the bits it should (``check_replicated``:
+    None, or its error)."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.train.checkpoint import whole_state_dict
+    from layout2img_tpu_torch.train.step import make_train_step
+
+    torch.manual_seed(11)
+    rng = torch.Generator().manual_seed(5)
+    step = make_train_step(state, cfg, vgg_loss=vgg)
+    out = []
+    for _ in range(steps):
+        metrics = {k: float(v) for k, v in step(batch, rng).items()}
+        whole = data_mesh.flat_tensors(whole_state_dict(state))
+        differ = None
+        if mesh is not None:
+            try:
+                data_mesh.check_replicated(mesh, state)
+            except RuntimeError as e:
+                differ = str(e)
+        out.append({"metrics": metrics, "state": {k: t.detach().clone() for k, t in whole.items()},
+                    "differ": differ})
+    return out
+
+
+def mesh2d_steps(name: str, one_step: bool) -> int:
+    return 1 if one_step else MESH2D_CONFIGS[name][2]
+
+
+def mesh2d_references(names, one_step: bool) -> dict:
+    """The one-process runs of ``names`` on the global batch."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    with data_mesh.use(data_mesh.world("cpu")):
+        return {n: run_mesh2d(*mesh2d_state(n), global_batch(b=B_2D), mesh2d_steps(n, one_step))
+                for n in names}
+
+
+def shard_layout(state, mesh) -> dict:
+    """Tensor mode: the leaves held whole where they could be cut
+    (``wrong``: a shardable weight whose output features divide by M, or a
+    shard that is not 1/M of it), the Adam moments and EMA whose shapes are
+    not their parameter's, and the parameters of rank >= 2 outside the
+    shardable layers."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    wrong, moments, outside = [], [], []
+    for key, net, opt in (("generator", state.generator, state.g_opt),
+                          ("discriminator", state.discriminator, state.d_opt)):
+        covered = set()
+        for prefix, m in net.named_modules():
+            if getattr(m, "TP_PARAM", None) is None:
+                continue
+            name = f"{prefix}.{m.TP_PARAM}" if prefix else m.TP_PARAM
+            covered.add(name)
+            local = getattr(m, m.TP_PARAM)
+            whole = data_mesh.gather_shard(local, m.TP_DIM) if m.tp_dim is not None else local
+            divides = whole.shape[m.TP_DIM] % mesh.model == 0
+            if divides != (m.tp_dim is not None) or (divides and local.numel() * mesh.model
+                                                     != whole.numel()):
+                wrong.append(f"{key}.{name}")
+        for i, (name, p) in enumerate(net.named_parameters()):
+            st = opt.state.get(p, {})
+            if any(st[k].shape != p.shape for k in ("exp_avg", "exp_avg_sq") if k in st):
+                moments.append(f"{key}.{name}")
+            if key == "generator" and state.ema is not None and state.ema[name].shape != p.shape:
+                moments.append(f"ema.{name}")
+            if p.ndim >= 2 and name not in covered:
+                outside.append(f"{key}.{name}")
+    return {"wrong": wrong, "moments": moments, "outside": outside}
+
+
+def mesh2d_units(mesh) -> dict:
+    """The 2-D mesh's pieces on a 1 x 2 mesh, each against the one-process
+    computation on the whole input, with seeded inputs alike on both ranks.
+    Each entry is (got, want) pairs; gradients of whole inputs are the
+    ranks' parts, which sum to M times the gradient (so ``/ M`` of the sum)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from layout2img_tpu_torch.nn.gcn import GraphConvolution
+    from layout2img_tpu_torch.nn.layers import Conv2d, Embedding, Linear
+    from layout2img_tpu_torch.nn.norms import batch_stats
+    from layout2img_tpu_torch.nn.spectral import SNConv, SNDense, SNEmbed
+    from layout2img_tpu_torch.ops.isla import isla_norm
+    from layout2img_tpu_torch.ops.roi import roi_align
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.utils.convert import _init_
+
+    m = mesh.model
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 6, 8, 5, generator=g)
+    cot = torch.randn(2, 6, 8, 5, generator=g)
+
+    def parts_sum(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t, group=mesh.model_group)
+        return t / m
+
+    out = {}
+    spatial = dataclasses.replace(mesh, mode="spatial")
+    tensor = dataclasses.replace(mesh, mode="tensor")
+
+    # a conv with halos, forward and both gradients
+    conv = SNConv(6, 4, 3)
+    _init_(conv, torch.Generator().manual_seed(1))
+    conv.eval()
+    xr = x.clone().requires_grad_(True)
+    with data_mesh.use(data_mesh.world("cpu")):
+        y = conv(xr)
+        want = [y.detach(), *torch.autograd.grad((y * cot[:, :4]).sum(), [xr, conv.weight_orig])]
+    with data_mesh.use(spatial), data_mesh.row_shards(True):
+        xs = x.clone().requires_grad_(True)
+        whole = data_mesh.join_rows(conv(data_mesh.split_rows(xs)))
+        dx, dw = torch.autograd.grad((whole * cot[:, :4]).sum(), [xs, conv.weight_orig])
+    out["halo_conv"] = list(zip([whole.detach(), parts_sum(dx), parts_sum(dw)], want))
+
+    # column-parallel layers (training mode: one sharded power iteration)
+    idx = torch.randint(0, 7, (3, 4), generator=g)
+    adj = torch.softmax(torch.randn(2, 6, 6, generator=g), dim=-1)
+    layers = {"sn_conv": (lambda: SNConv(6, 4, 3), x, ()),
+              "sn_dense": (lambda: SNDense(5, 6), x, ()),
+              "sn_embed": (lambda: SNEmbed(7, 6), idx, ()),
+              "conv": (lambda: Conv2d(6, 4, 3, padding=1), x, ()),
+              "dense": (lambda: Linear(5, 6), x, ()),
+              "embed": (lambda: Embedding(7, 6), idx, ()),
+              "gcn": (lambda: GraphConvolution(5, 4), x[:, 0, :6], (adj,))}
+    for name, (make, inp, rest) in layers.items():
+        pair = []
+        for mode in ("one", "tensor"):
+            layer = make()
+            _init_(layer, torch.Generator().manual_seed(2))
+            layer.train()
+            with data_mesh.use(data_mesh.world("cpu") if mode == "one" else tensor):
+                if mode == "tensor":
+                    data_mesh.shard_parameters(layer, tensor)
+                leaf = inp.clone().requires_grad_(inp.is_floating_point())
+                y = layer(leaf, *rest)
+                w = getattr(layer, layer.TP_PARAM)
+                grads = torch.autograd.grad((y * torch.ones_like(y).cumsum(-1)).sum(),
+                                            [w] + ([leaf] if leaf.requires_grad else []))
+                if mode == "tensor":
+                    grads = (data_mesh.gather_shard(grads[0], layer.TP_DIM), *grads[1:])
+                u = getattr(layer, "weight_u", torch.zeros(0))
+                pair.append([y.detach(), *grads, u.clone()])
+        out[f"tp_{name}"] = list(zip(pair[1], pair[0]))
+
+    # batch statistics: over the data axis in tensor mode (here one group),
+    # over every rank on row shards
+    with data_mesh.use(data_mesh.world("cpu")):
+        want = batch_stats(x)
+    with data_mesh.use(tensor):
+        got_t = batch_stats(x)
+    with data_mesh.use(spatial), data_mesh.row_shards(True):
+        got_s = batch_stats(data_mesh.split_rows(x))
+    out["batch_stats"] = list(zip((*got_t, *got_s), (*want, *want)))
+
+    # the ISLA norm on row windows with global statistics: rows, and the
+    # gradients of x, the mask and gamma/beta
+    mask = torch.rand(2, 3, 5, 4, generator=g)
+    gamma, beta = torch.randn(2, 3, 6, generator=g), torch.randn(2, 3, 6, generator=g)
+
+    def norm(xx, mm, gg, bb):
+        mean, var = batch_stats(xx)
+        row0, full_h = data_mesh.row_window(xx.shape[-2])
+        return isla_norm(xx, mean, var, 1e-5, mm, gg, bb, relu=True, row0=row0, full_h=full_h)
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, mask, gamma, beta)]
+    with data_mesh.use(data_mesh.world("cpu")):
+        y = norm(*leaves)
+        want = [y.detach(), *torch.autograd.grad((y * cot).sum(), leaves)]
+    leaves = [t.clone().requires_grad_(True) for t in (x, mask, gamma, beta)]
+    with data_mesh.use(spatial), data_mesh.row_shards(True):
+        y = norm(data_mesh.split_rows(leaves[0]), *leaves[1:])
+        whole = data_mesh.join_rows(y)
+        got = [whole.detach(), *(parts_sum(t) for t in torch.autograd.grad((whole * cot).sum(),
+                                                                          leaves))]
+    out["isla_rows"] = list(zip(got, want))
+
+    # RoIAlign summed over the model group's partial crops
+    feats = torch.randn(2, 3, 16, 16, generator=g)
+    boxes = torch.tensor([[[1.0, 2.0, 9.0, 15.0], [4.0, 0.0, 16.0, 7.5]],
+                          [[0.0, 0.0, 16.0, 16.0], [7.0, 7.0, 8.0, 8.0]]]) * 4
+    with data_mesh.use(data_mesh.world("cpu")):
+        want = roi_align(feats, boxes, 8, 0.25)
+    with data_mesh.use(spatial), data_mesh.row_shards(True):
+        got = roi_align(data_mesh.split_rows(feats), boxes, 8, 0.25, rows=True)
+    out["roi_rows"] = [(got, want)]
+    return out
+
+
+def mesh2d_rank(rank: int, model_parallel: int, names: list[str], with_units: bool,
+                out_dir: str) -> None:
+    """Rank program of ``tests/test_torch_port_mesh2d.py``: the units (on a
+    1 x 2 mesh), the one-process references of ``names`` (split over the
+    ranks), then each configuration of ``names`` on the (W / M, M) mesh, on
+    the data group's rows of the global batch; the ranks of model index 0
+    write ``<name>.<data group>.pt``: per step ``compare`` against its
+    reference (the state gathered whole) and whether every rank holds the
+    bits it should (``check_replicated``), and the tensor-mode shard layout."""
+    import torch.distributed as dist
+
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize("cpu")
+    if with_units:
+        units = mesh2d_units(data_mesh.make_mesh_2d(mesh, 2, "tensor"))
+        if rank == 0:
+            torch.save(units, os.path.join(out_dir, "units.pt"))
+    one_step = model_parallel < mesh.world
+    refs = mesh2d_references([n for i, n in enumerate(names) if i % mesh.world == rank], one_step)
+    everyone: list = [None] * mesh.world
+    dist.all_gather_object(everyone, refs)
+    refs = {k: v for r in everyone for k, v in r.items()}
+    for name in names:
+        with data_mesh.use(mesh):  # the configuration's mesh is current inside
+            _mesh2d_config(name, data_mesh.make_mesh_2d(mesh, model_parallel,
+                                                        MESH2D_CONFIGS[name][0]), refs[name],
+                           one_step, out_dir)
+    data_mesh.shutdown()
+
+
+def _mesh2d_config(name: str, two, refs: list, one_step: bool, out_dir: str) -> None:
+    """One configuration of ``mesh2d_rank`` on the 2-D mesh ``two``; the
+    optimizers and EMA are rebuilt on the shards in tensor mode."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.train.checkpoint import sharded_leaves
+    from layout2img_tpu_torch.train.state import create_train_state
+
+    mode = two.mode
+    state, cfg, vgg = mesh2d_state(name)
+    if mode == "tensor":
+        data_mesh.shard_parameters(state.generator, two)
+        data_mesh.shard_parameters(state.discriminator, two)
+        state = create_train_state(state.generator, state.discriminator, cfg)
+    steps_out = run_mesh2d(state, cfg, vgg, {k: two.rows(v) for k, v in
+                                             global_batch(b=B_2D).items()},
+                           mesh2d_steps(name, one_step), two)
+    layout = shard_layout(state, two) if mode == "tensor" else None
+    n_sharded = len(sharded_leaves(state))
+    if two.model_index == 0:
+        torch.save({"steps": [compare(r, s, [[], []]) for r, s in zip(refs, steps_out)],
+                    "ranks_differ": [s["differ"] for s in steps_out], "layout": layout,
+                    "n_sharded": n_sharded,
+                    "shapes": [{k: tuple(v.shape) for k, v in s["state"].items()}
+                               for s in steps_out],
+                    "ref_shapes": [{k: tuple(v.shape) for k, v in r["state"].items()}
+                                   for r in refs]},
+                   os.path.join(out_dir, f"{name}.{two.data_index}.pt"))
+
+
+def given2d_rank(rank: int, inputs: str, out_dir: str) -> None:
+    """Rank program: ``given_rank``'s step on a 1 x 2 mesh in tensor and then
+    in spatial mode, from the same state dicts and latents, both ranks on the
+    whole batch; rank 0 writes each mode's networks gathered whole and its
+    metrics to ``given2d.<mode>.pt``."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize("cpu")
+    given = torch.load(inputs)
+    for mode in ("tensor", "spatial"):
+        with data_mesh.use(mesh):  # each mode's mesh is current inside
+            _given2d_step(rank, given, data_mesh.make_mesh_2d(mesh, 2, mode), out_dir)
+    data_mesh.shutdown()
+
+
+def _given2d_step(rank: int, given: dict, two, out_dir: str) -> None:
+    """One mode of ``given2d_rank`` on the 2-D mesh ``two``."""
+    from layout2img_tpu_torch.models.discriminators import make_discriminator
+    from layout2img_tpu_torch.models.generators import make_generator
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.train.checkpoint import whole_tensors
+    from layout2img_tpu_torch.train.state import TrainConfig, create_train_state
+    from layout2img_tpu_torch.train.step import make_train_step
+
+    mode = two.mode
+    gen = make_generator("ours_d_context128", NC, device="cpu", ch=CH, image_size=IMG,
+                         num_mask_classes=NC)
+    gen.load_state_dict(given["g_sd"], strict=True)
+    disc = make_discriminator("d128_app", NC, device="cpu", ch=CH, image_size=IMG)
+    disc.load_state_dict(given["d_sd"], strict=True)
+    dims = {}
+    if mode == "tensor":
+        dims = {"generator": data_mesh.shard_parameters(gen, two),
+                "discriminator": data_mesh.shard_parameters(disc, two)}
+    cfg = TrainConfig(use_vgg_loss=False)
+    state = create_train_state(gen, disc, cfg)
+    step = make_train_step(state, cfg, deterministic=True)
+    metrics = step.with_latents(given["batch"], given["z"], given["z_im"])
+    nets = {k: whole_tensors(net.state_dict(), dims.get(k, {}))
+            for k, net in (("generator", gen), ("discriminator", disc))}
+    if rank == 0:
+        torch.save({"metrics": {k: float(v) for k, v in metrics.items()}, **nets},
+                   os.path.join(out_dir, f"given2d.{mode}.pt"))
