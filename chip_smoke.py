@@ -181,7 +181,28 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               kernel per rank (in spatial mode all 10 forward calls on row
               windows), each rank's peak device memory and the parameter,
               Adam and EMA bytes it holds beside the one process's.
-19. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+19. shard  -- ``cli.sample`` and ``cli.evaluate`` batch-sharded over 2 gloo
+              ranks sharing the card (one torchrun launch), against one
+              process in this one while the ranks run: full-width
+              ``context_app_v2`` (seeded ``--weights``, 184 classes) on a
+              16-JPEG COCO fixture, cuDNN deterministic; the JPEGs at b=8 and
+              the 7 real rows at b=7 (padded to 8) against one process's b=8
+              JPEGs (the same bytes or within one grey level; the largest
+              difference printed), 10 ISLA launches a forward on each side,
+              rank 0 alone printing, ``is`` and ``fid --ref_dir`` printing
+              one process's numbers.
+20. inference -- ``layout2img_tpu_torch/scripts/bench_inference.py`` in this
+              process at ``BENCH_K=50``: f32, ``BENCH_BF16=1`` and
+              ``BENCH_VALID_MAX=10 BENCH_OBJ_BUDGET=12``; ms a batch and img/s
+              of Ours-ED (64 px, b=8) and Ours-D VG (128 px, b=8, o=31), 16 and
+              10 ISLA launches a forward.
+21. profile -- ``layout2img_tpu_torch/scripts/profile_step.py`` at its
+              defaults (b=16, o=8, 184 classes, mixed precision, K=50) and
+              with ``--objects 31 --num_classes 179 --roi_detail --k 10``: every
+              component's line (G and D forwards, VGG, the step without and
+              with VGG, the RoI crops) and its ISLA launches a call (10 for
+              G's forward, 10 of each kernel for a step).
+22. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -213,7 +234,7 @@ ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
           "train_mixed", "presets", "data", "eval", "special", "export", "conditioning", "ddp",
-          "mesh2d")
+          "mesh2d", "shard", "inference", "profile")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -781,19 +802,23 @@ def bwd_vg_phase(reps: int = 50) -> dict:
             args = (x, *batch_stats(x), 1e-5, mask, gamma, beta, grad, relu)
             w_ms, w_lo, w_hi = time_ms(lambda: isla_norm_backward(*args), reps, flush)
             n_prof = max(5, reps // 10)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(n_prof):
-                    flush.zero_()
-                    isla_norm_backward(*args)
+            # the profiler has dropped some kernels of a run of calls on the card, once all of
+            # one session's: the median of those it saw, a new session (at most 3) when it saw
+            # none, and a failure when none of them saw one
+            for _ in range(3):
                 torch.cuda.synchronize()
-            main_us = sorted(e.time_range.elapsed_us() for e in prof.events()
-                             if e.device_type == torch.autograd.DeviceType.CUDA
-                             and "isla_norm_bwd_kernel" in e.name)
-            # the profiler has dropped some kernels of a run of calls on the card: the median
-            # of those it saw, and a failure only when it saw none
-            need(len(main_us) > 0, f"the profiler saw no main ISLA backward kernel in {n_prof} "
-                                   f"calls at {where}")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n_prof):
+                        flush.zero_()
+                        isla_norm_backward(*args)
+                    torch.cuda.synchronize()
+                main_us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                                 if e.device_type == torch.autograd.DeviceType.CUDA
+                                 and "isla_norm_bwd_kernel" in e.name)
+                if main_us:
+                    break
+            need(len(main_us) > 0, f"the profiler saw no main ISLA backward kernel in 3 sessions "
+                                   f"of {n_prof} calls at {where}")
             k_ms = main_us[len(main_us) // 2] / 1e3
             resized = resize_bilinear(mask.float(), (h, h)).flatten(2)  # (b, o, p)
             tp = min(64, h * h)
@@ -3112,11 +3137,13 @@ def _mesh2d_ranks(paths: dict, seed: int, with_ddp: bool) -> tuple[dict, int]:
 
 
 def ddp_child(argv: list[str]) -> int:
-    """A process of the ddp and mesh2d phases, alone or under torchrun:
-    ``cli OUT ARGS...`` runs ``cli.train`` on ARGS with deterministic cuDNN;
-    ``step OUT PATHS_JSON SEED`` runs ``_ddp_rank_step``; ``mesh2d OUT
-    PATHS_JSON SEED [ddp]`` runs ``_mesh2d_ranks``. Rank 0 writes what it
-    found (ISLA launches, step ms, ...) to OUT with ``torch.save``."""
+    """A process of the ddp, mesh2d and shard phases, alone or under
+    torchrun: ``cli OUT ARGS...`` runs ``cli.train`` on ARGS with
+    deterministic cuDNN; ``step OUT PATHS_JSON SEED`` runs
+    ``_ddp_rank_step``; ``mesh2d OUT PATHS_JSON SEED [ddp]`` runs
+    ``_mesh2d_ranks``; ``shard OUT CALLS_JSON`` runs ``_shard_ranks``. Rank 0
+    writes what it found (ISLA launches, step ms, ...) to OUT with
+    ``torch.save``."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -3130,6 +3157,9 @@ def ddp_child(argv: list[str]) -> int:
         result, rank = {"counts": _isla_counts(), "ms": times}, int(os.environ.get("RANK", 0))
     elif mode == "mesh2d":
         result, rank = _mesh2d_ranks(json.loads(argv[2]), int(argv[3]), argv[4:] == ["ddp"])
+    elif mode == "shard":
+        with _deterministic_cudnn():
+            result, rank = _shard_ranks(json.loads(argv[2]))
     else:
         result, rank = _ddp_rank_step(json.loads(argv[2]), int(argv[3]))
     if rank == 0:
@@ -3139,14 +3169,30 @@ def ddp_child(argv: list[str]) -> int:
 
 def _torchrun(nproc: int, args: list[str], what: str, tag: str = "ddp") -> None:
     """``torchrun --standalone --nproc_per_node=nproc chip_smoke.py --ddp_child ARGS``."""
+    _torchrun_wait(_torchrun_start(nproc, args), what, tag)
+
+
+def _torchrun_start(nproc: int, args: list[str], threads: int | None = None):
+    """Start ``_torchrun``'s command (``threads``: OpenMP threads a rank, in
+    place of torchrun's 1); ``_torchrun_wait`` joins it."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", DDP_ENTRY, "--ddp_child", *args]
-    t0 = time.perf_counter()
-    out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=400)
-    need(out.returncode == 0, f"{what}: torchrun exited {out.returncode}: "
-                              f"{(out.stdout + out.stderr)[-3000:]}")
-    phase(tag, f"{what}: torchrun --nproc_per_node={nproc} exit 0 in "
-               f"{time.perf_counter() - t0:.1f}s")
+    env = {**os.environ, "OMP_NUM_THREADS": str(threads)} if threads else None
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env)
+    proc.t0, proc.nproc = time.perf_counter(), nproc
+    return proc
+
+
+def _torchrun_wait(proc, what: str, tag: str) -> None:
+    try:
+        out, _ = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    need(proc.returncode == 0, f"{what}: torchrun exited {proc.returncode}: {out[-3000:]}")
+    phase(tag, f"{what}: torchrun --nproc_per_node={proc.nproc} exit 0 in "
+               f"{time.perf_counter() - proc.t0:.1f}s")
 
 
 def _median(xs: list[float]) -> float:
@@ -3308,6 +3354,268 @@ def mesh2d_phase(seed: int, tmp_dir: str, card: str, paths: dict | None,
         launches = [a + b for a, b in zip(launches, got["counts"])]
     phase("mesh2d", f"{time.perf_counter() - t_phase:.1f}s")
     return tuple(launches), ddp_counts
+
+
+# ---- batch-sharded cli.sample and cli.evaluate, the inference bench, the step profile ----
+
+SHARD_IMAGES, SHARD_NUM_IMG = 16, 2  # the shard phase's COCO fixture and draws a layout
+
+
+def _cli_text(main, argv: list[str]) -> str:
+    """What ``main(argv)`` prints."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        main(argv)
+    return out.getvalue()
+
+
+def _shard_calls(root: str, side: str) -> dict:
+    """The shard phase's CLI calls of one side (``one`` process or the
+    ``two`` ranks), writing under ``root/side``: cli.sample from the
+    full-width weights at b=8 over the fixture's 16 layouts and (ranks only)
+    at b=7 over its first 7, then cli.evaluate is and fid on the b=8 JPEGs.
+    Every Inception call runs 4 images on either side (a chunk of 8 on 2
+    ranks, of 4 in one process)."""
+    fixture = os.path.join(root, "coco")
+    data = ["--weights", os.path.join(root, "G.pth"), "--dataset", "coco", "--coco_image_dir",
+            fixture, "--coco_instances", os.path.join(fixture, "instances.json"),
+            "--coco_stuff", os.path.join(fixture, "stuff.json"), "--num_img", str(SHARD_NUM_IMG)]
+    out = os.path.join(root, side)
+    sample = {"b8": data + ["--batch_size", "8", "--sample_path", os.path.join(out, "b8")]}
+    if side == "two":
+        sample["b7"] = data + ["--batch_size", "7", "--max_layouts", "7", "--sample_path",
+                               os.path.join(out, "b7")]
+    bs = "8" if side == "two" else "4"
+    evaluate = {"is": ["is", "--dir", os.path.join(out, "b8"), "--batch_size", bs],
+                "fid": ["fid", "--dir", os.path.join(out, "b8"), "--ref_dir", fixture, "--resize",
+                        "128", "--batch_size", bs]}
+    return {"sample": sample, "evaluate": evaluate}
+
+
+def _run_shard_calls(calls: dict) -> dict:
+    """Each cli.sample call of ``calls`` with its ISLA launches (counts set
+    to 0 just before, read just after) and printed lines, then each
+    cli.evaluate call's printed lines."""
+    from layout2img_tpu_torch.cli import evaluate as evaluate_cli
+    from layout2img_tpu_torch.cli import sample as sample_cli
+
+    out = {}
+    for name, argv in calls["sample"].items():
+        _reset_isla_counts()
+        t0 = time.perf_counter()
+        text = _cli_text(sample_cli.main, argv)
+        sync_all()
+        out[name] = {"launches": _isla_counts()[0], "text": text,
+                     "s": time.perf_counter() - t0}
+    for name, argv in calls["evaluate"].items():
+        t0 = time.perf_counter()
+        out[name] = {"text": _cli_text(evaluate_cli.main, argv), "s": time.perf_counter() - t0}
+    return out
+
+
+def _shard_ranks(calls: dict) -> tuple[dict, int]:
+    """The shard phase's torchrun program: 2 gloo ranks on the one card, in
+    one process group that every CLI call finds formed; every rank's
+    results."""
+    import torch.distributed as dist
+
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    mesh = data_mesh.initialize(backend="gloo")
+    mine = _run_shard_calls(calls)
+    everyone: list = [None] * mesh.world
+    dist.all_gather_object(everyone, mine)
+    data_mesh.shutdown()
+    return {"ranks": everyone}, mesh.rank
+
+
+def _jpeg_gap(a: str, b: str) -> tuple[bool, int]:
+    """(same bytes, largest decoded difference in grey levels) of two JPEGs."""
+    import numpy as np
+    import PIL.Image
+
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() == fb.read():
+            return True, 0
+    with PIL.Image.open(a) as ia, PIL.Image.open(b) as ib:
+        return False, int(np.abs(np.asarray(ia, np.int16) - np.asarray(ib, np.int16)).max())
+
+
+def shard_phase(seed: int, tmp_dir: str, card: str) -> int:
+    """``cli.sample`` and ``cli.evaluate`` batch-sharded over 2 gloo ranks on
+    the one card (one torchrun launch) against one process (this one, while
+    the ranks run), at full width (``context_app_v2``: ``ours_d_context128``,
+    ch=64, 128 px, 184 classes, seeded ``--weights``) on a 16-JPEG COCO
+    fixture, cuDNN deterministic on both sides: the b=8 JPEGs and b=7's 7
+    real rows against one process's b=8 JPEGs (the same bytes, or within one
+    grey level where cuDNN picks another algorithm at half the batch), 10
+    ISLA launches a forward on each side, rank 0 alone printing, and the
+    printed IS and FID equal to one process's. Returns the ISLA forward
+    launches of the one-process run and of both ranks."""
+    import shutil
+
+    import torch
+
+    from layout2img_tpu_torch.data.synthetic import write_synthetic_coco, write_synthetic_stuff
+    from layout2img_tpu_torch.utils.convert import init_generator
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp_dir, "shard")
+    shutil.rmtree(root, ignore_errors=True)
+    _, inst = write_synthetic_coco(os.path.join(root, "coco"), SHARD_IMAGES, width=160,
+                                   height=120, seed=seed)
+    write_synthetic_stuff(os.path.join(root, "coco"), inst, seed=seed)
+    torch.save(init_generator(seed, COCO_CLASSES, device="cpu", ch=CH).state_dict(),
+               os.path.join(root, "G.pth"))
+    out = os.path.join(tmp_dir, "shard.pt")
+    # 4 threads a rank: at torchrun's 1, rank 0's FID (scipy's sqrtm of a 2048x2048
+    # matrix) took 19.0 s against 9.7 s in one process
+    proc = _torchrun_start(2, ["shard", out, json.dumps(_shard_calls(root, "two"))], threads=4)
+    with _deterministic_cudnn():
+        one = _run_shard_calls(_shard_calls(root, "one"))
+    _torchrun_wait(proc, "cli.sample and cli.evaluate, 2 ranks on one card, gloo", "shard")
+    ranks = torch.load(out, weights_only=False)["ranks"]
+
+    n_layouts = int(one["b8"]["text"].split("wrote ", 1)[1].split()[0])
+    calls = {"b8": -(-n_layouts // 8) * SHARD_NUM_IMG, "b7": SHARD_NUM_IMG}
+    need(one["b8"]["launches"] == 10 * calls["b8"],
+         f"shard one process: {one['b8']['launches']} ISLA launches, not 10 x {calls['b8']} "
+         "forwards")
+    for r, got in enumerate(ranks):
+        for name, n in calls.items():
+            need(got[name]["launches"] == 10 * n,
+                 f"shard rank {r} {name}: {got[name]['launches']} ISLA launches, not 10 x {n}")
+        need(r == 0 or all(not got[k]["text"].strip() for k in got),
+             f"shard rank {r} printed: {[got[k]['text'] for k in got]}")
+    lines = {k: ranks[0][k]["text"].strip().splitlines() for k in ranks[0]}
+    need(lines["b8"][0] == "sampling data-parallel over 2 ranks"
+         and lines["b7"][0] == "sampling data-parallel over 2 ranks (batch padded 7 -> 8)",
+         f"shard: rank 0 printed {lines['b8'][:1]} and {lines['b7'][:1]}")
+
+    worst, same, total = 0, 0, 0
+    for name, files in (("b8", sorted(os.listdir(os.path.join(root, "one", "b8")))),
+                        ("b7", [f"sample{i}_numb{j}.jpg" for i in range(7)
+                                for j in range(SHARD_NUM_IMG)])):
+        mine = sorted(os.listdir(os.path.join(root, "two", name)))
+        need(mine == sorted(files), f"shard {name}: the ranks wrote {len(mine)} files, not the "
+                                    f"{len(files)} of one process")
+        for f in files:
+            equal, gap = _jpeg_gap(os.path.join(root, "two", name, f),
+                                   os.path.join(root, "one", "b8", f))
+            same, total, worst = same + equal, total + 1, max(worst, gap)
+    need(worst <= 1, f"shard: a sharded JPEG is {worst} grey levels from one process's (bar 1)")
+    phase("shard", f"cli.sample at b=8 ({n_layouts} layouts x {SHARD_NUM_IMG}) and at b=7 (padded "
+                   f"to 8, 7 layouts) on 2 ranks: {same} of {total} JPEGs the same bytes as one "
+                   f"process's at b=8, largest decoded difference {worst} grey levels (bar 1); "
+                   f"ISLA forward x10 a forward in one process ({one['b8']['launches']}) and on "
+                   f"each rank ({ranks[0]['b8']['launches']} + {ranks[0]['b7']['launches']}); "
+                   "rank 1 printed nothing")
+    for name in ("is", "fid"):
+        want = one[name]["text"].strip().splitlines()[-1].replace("/one/", "/two/")
+        got = lines[name][-1]
+        need(got == want, f"shard {name}: rank 0 printed {got!r}, one process {want!r}")
+        phase("shard", f"cli.evaluate {name} on 2 ranks prints one process's line: {got} "
+                       f"(each Inception call 4 images on either side) | {card}")
+    from layout2img_tpu_torch.cli.evaluate import iter_file_batches, list_images
+
+    t0 = time.perf_counter()
+    decoded = sum(len(c) for d, r in ((os.path.join(root, "one", "b8"), 0),
+                                     (os.path.join(root, "coco"), 128))
+                  for c in iter_file_batches(list_images(d), 8, r))
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    phase("shard", f"host decode that every rank repeats (each reads every JPEG; is and fid "
+                   f"read the samples twice and the fixture once): one pass over the {decoded} "
+                   f"JPEGs in {decode_ms:.1f} ms, {decode_ms / decoded:.3f} ms each")
+    phase("shard", "seconds a call, one process / rank 0: " + ", ".join(
+        f"{k} {one[k]['s']:.1f} / {ranks[0][k]['s']:.1f}" if k in one else
+        f"{k} - / {ranks[0][k]['s']:.1f}" for k in ranks[0]))
+    phase("shard", f"{time.perf_counter() - t_phase:.1f}s")
+    return one["b8"]["launches"] + sum(r[k]["launches"] for r in ranks for k in calls)
+
+
+INFERENCE_RUNS = (("f32", {}), ("bf16", {"BENCH_BF16": "1"}),
+                  ("budgeted", {"BENCH_VALID_MAX": "10", "BENCH_OBJ_BUDGET": "12"}))
+
+
+@contextlib.contextmanager
+def _counted(module, name: str, calls: list):
+    """``module.<name>`` for the block, with each call's ISLA launches (counts
+    set to 0 just before it, read just after) appended to ``calls`` with its
+    result."""
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        _reset_isla_counts()
+        result = fn(*args, **kwargs)
+        sync_all()
+        calls.append((result, _isla_counts()))
+        return result
+
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def inference_phase(card: str, k: int = 50) -> int:
+    """``scripts/bench_inference.py`` in this process at ``BENCH_K=k``: f32,
+    ``BENCH_BF16=1`` and ``BENCH_VALID_MAX=10 BENCH_OBJ_BUDGET=12``; 16 ISLA
+    launches an Ours-ED forward and 10 an Ours-D one. Returns the launches."""
+    from layout2img_tpu_torch.scripts import bench_inference
+
+    t_phase = time.perf_counter()
+    total = 0
+    for tag, env in INFERENCE_RUNS:
+        with _counted(bench_inference, "bench", []) as calls:
+            _cli_text(lambda argv: bench_inference.main(argv, env={"BENCH_K": str(k), **env}), [])
+        for (res, counts), per in zip(calls, (16, 10)):
+            need(counts[0] == per * res["calls"],
+                 f"inference {tag} {res['name']}: {counts[0]} ISLA launches, not {per} x "
+                 f"{res['calls']} forwards")
+            total += counts[0]
+            phase("inference", f"{tag}: {res['name']}: {res['ms']:.3f} ms/batch, "
+                               f"{res['img_s']:.1f} img/s ({k} batches, ISLA x{per} a forward) "
+                               f"| {card}")
+    phase("inference", f"{time.perf_counter() - t_phase:.1f}s")
+    return total
+
+
+# the VG-shaped run times each component 10 times (the default run's 50 time the same step at o=8)
+PROFILE_RUNS = ([], ["--objects", "31", "--num_classes", "179", "--roi_detail", "--k", "10"])
+
+
+def profile_phase(card: str) -> tuple[int, int, int]:
+    """``scripts/profile_step.py`` at its defaults (``ours_d_context128``,
+    b=16, o=8, 184 classes, 128 px, K=50) and with ``--objects 31
+    --num_classes 179 --roi_detail --k 10``: every component's line, and the ISLA
+    launches of each component a call (10 forward for G's forward; 10 of
+    each kernel for a mixed step; none elsewhere). Returns the launches."""
+    import io
+
+    from layout2img_tpu_torch.scripts import profile_step
+
+    t_phase = time.perf_counter()
+    total = [0, 0, 0]
+    for argv in PROFILE_RUNS:
+        with _counted(profile_step, "timed", []) as calls, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            profile_step.main(argv)
+        for line in out.getvalue().strip().splitlines():
+            phase("profile", line)
+        for (ms, counts), name in zip(calls, [ln.split("  ")[0] for ln in
+                                              out.getvalue().splitlines() if "ms/step" in ln]):
+            per = tuple(n / (profile_step.parse_args(argv).k + 1) for n in counts)
+            want = ((10, 10, 10) if name.startswith("full step") else
+                    (10, 0, 0) if name.startswith("G forward") else (0, 0, 0))
+            need(per == want, f"profile {name}: ISLA launches {per} a call, not {want}")
+            total = [a + b for a, b in zip(total, counts)]
+        phase("profile", f"ISLA launches a call: G forward 10/0/0, a mixed step 10/10/10, D, VGG "
+                         f"and RoI 0 | {card}")
+    phase("profile", f"{time.perf_counter() - t_phase:.1f}s")
+    return tuple(total)
 
 
 def synthetic_layouts_np(seed: int, b: int, size: int) -> dict:
@@ -3485,6 +3793,25 @@ def main(argv=None) -> int:
                 row["launches"] = (row.get("launches") or 0) + n + g
                 if shared:
                     row["launches_ddp"] += g
+        if "shard" in phases:
+            begin("shard")
+            n = shard_phase(args.seed, tmp_dir, card)
+            fwd["launches_shard"] = n
+            fwd["launches"] = (fwd.get("launches") or 0) + n
+            for row in (bwd, fin):
+                row["launches_shard"] = 0
+        if "inference" in phases:
+            begin("inference")
+            n = inference_phase(card)
+            fwd["launches_inference"] = n
+            fwd["launches"] = (fwd.get("launches") or 0) + n
+            for row in (bwd, fin):
+                row["launches_inference"] = 0
+        if "profile" in phases:
+            begin("profile")
+            for row, n in zip((fwd, bwd, fin), profile_phase(card)):
+                row["launches_profile"] = n
+                row["launches"] = (row.get("launches") or 0) + n
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

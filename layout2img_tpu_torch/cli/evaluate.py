@@ -25,7 +25,15 @@ Without ``--inception_weights`` (a torchvision ``inception_v3`` ``.pth``)
 Inception has seeded random filters: the numbers are a pipeline check, not
 comparable with published ones, nor with the JAX package's random filters.
 Runs on one GPU (``--device``, default cuda); ``--device cpu`` asks for the
-CPU.
+CPU. Under ``torchrun --nproc_per_node=W -m layout2img_tpu_torch.cli.evaluate
+...`` (NCCL on the card, gloo on the CPU) the Inception passes of ``is``,
+``fid`` and ``kid`` are sharded over the ranks as the JAX CLI shards them
+over its devices (``layout2img_tpu/cli/evaluate.py:195-204``): every rank
+decodes every image, runs its rows of each chunk padded up to a multiple of
+W, and the features are gathered (``eval/metrics.py::run_inception_batches``),
+so the numbers are one process's. Rank 0 alone computes the scores, prints
+and writes ``--save_stats``; ``lpips`` runs on rank 0 alone, unsharded as in
+JAX, while the other ranks wait.
 """
 
 from __future__ import annotations
@@ -165,13 +173,21 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
-    import torch
-
-    from layout2img_tpu_torch.device import resolve_device
-    from layout2img_tpu_torch.eval.metrics import tf32_off
+    from layout2img_tpu_torch.parallel.mesh import launched
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    with launched(args.device) as mesh:
+        _main(args, mesh)
+
+
+def _main(args, mesh) -> None:
+    import torch
+
+    from layout2img_tpu_torch.eval.metrics import tf32_off
+
+    device = mesh.device
+    lead = mesh.rank == 0  # prints, writes and computes the host-side scores
+    say = print if lead else (lambda *a, **k: None)
     limit = args.limit or None
     sources = resolve_sources(args)
 
@@ -196,42 +212,53 @@ def main(argv=None):
                                                        run_inception_batches)
 
         if not args.inception_weights:
-            print("WARNING: no --inception_weights; random filters (numbers not comparable)")
+            say("WARNING: no --inception_weights; random filters (numbers not comparable)")
         net = load_inception(args.inception_weights, device)
+        if mesh.world > 1 and args.batch_size % mesh.world:
+            say(f"note: --batch_size {args.batch_size} padded up to a multiple of {mesh.world} "
+                "ranks inside the eval loop")
+
+        def features(batches):
+            return run_inception_batches(net, batches, mesh=mesh)
 
         if args.mode == "is":
             for name, batches in sources:
-                _, probs = run_inception_batches(net, batches)
-                mean, std = inception_score(probs, args.splits)
-                print(f"{name}: IS: {mean:.4f} +/- {std:.4f}  (n={len(probs)}, splits={args.splits})")
+                _, probs = features(batches)
+                if lead:
+                    mean, std = inception_score(probs, args.splits)
+                    say(f"{name}: IS: {mean:.4f} +/- {std:.4f}  (n={len(probs)}, "
+                        f"splits={args.splits})")
         elif args.mode == "kid":
             from layout2img_tpu_torch.eval.metrics import kid_from_features
 
-            feats, _ = run_inception_batches(net, sources[0][1])
-            ref_feats, _ = run_inception_batches(net, ref_batches())
-            mean, std = kid_from_features(feats, ref_feats, args.kid_subset_size, args.kid_subsets)
-            print(f"KID: {mean * 1000:.4f} +/- {std * 1000:.4f} (x10^-3)  "
-                  f"(n={len(feats)} vs {len(ref_feats)}, "
-                  f"subset={min(args.kid_subset_size, len(feats), len(ref_feats))}"
-                  f"x{args.kid_subsets})")
+            feats, _ = features(sources[0][1])
+            ref_feats, _ = features(ref_batches())
+            if lead:
+                mean, std = kid_from_features(feats, ref_feats, args.kid_subset_size,
+                                              args.kid_subsets)
+                say(f"KID: {mean * 1000:.4f} +/- {std * 1000:.4f} (x10^-3)  "
+                    f"(n={len(feats)} vs {len(ref_feats)}, "
+                    f"subset={min(args.kid_subset_size, len(feats), len(ref_feats))}"
+                    f"x{args.kid_subsets})")
         else:
             from layout2img_tpu_torch.eval.metrics import (feature_stats, frechet_distance,
                                                            load_feature_stats, save_feature_stats)
 
-            feats, _ = run_inception_batches(net, sources[0][1])
-            mu, sigma = feature_stats(feats)
-            if args.save_stats:
-                save_feature_stats(args.save_stats, mu, sigma, len(feats))
-                print(f"saved stats for {len(feats)} images -> {args.save_stats}")
-            if args.ref_stats:
-                ref_mu, ref_sigma, ref_n = load_feature_stats(args.ref_stats)
-                src = f"{args.ref_stats}, n={ref_n}" if ref_n >= 0 else args.ref_stats
-                print(f"FID: {frechet_distance(mu, sigma, ref_mu, ref_sigma):.4f}"
-                      f"  (ref: {src})")
-            elif args.ref_dir:
-                ref_feats, _ = run_inception_batches(net, ref_batches())
-                print(f"FID: {fid_from_features(feats, ref_feats):.4f}")
-    else:
+            feats, _ = features(sources[0][1])
+            ref_feats = features(ref_batches())[0] if args.ref_dir else None
+            if lead:
+                mu, sigma = feature_stats(feats)
+                if args.save_stats:
+                    save_feature_stats(args.save_stats, mu, sigma, len(feats))
+                    say(f"saved stats for {len(feats)} images -> {args.save_stats}")
+                if args.ref_stats:
+                    ref_mu, ref_sigma, ref_n = load_feature_stats(args.ref_stats)
+                    src = f"{args.ref_stats}, n={ref_n}" if ref_n >= 0 else args.ref_stats
+                    say(f"FID: {frechet_distance(mu, sigma, ref_mu, ref_sigma):.4f}"
+                        f"  (ref: {src})")
+                elif ref_feats is not None:
+                    say(f"FID: {fid_from_features(feats, ref_feats):.4f}")
+    elif lead:  # lpips runs unsharded, as JAX's: on rank 0 while the others wait
         from layout2img_tpu_torch.eval.lpips import load_lpips
 
         lp = load_lpips(args.lpips_weights, args.lpips_backbone or None, device)
@@ -243,7 +270,8 @@ def main(argv=None):
                         for x in (a, b))
                 dists.append(lp(b, a).float().cpu().numpy())
         d = np.concatenate(dists)
-        print(f"LPIPS: {d.mean():.4f} +/- {d.std():.4f}  (n={len(d)})")
+        say(f"LPIPS: {d.mean():.4f} +/- {d.std():.4f}  (n={len(d)})")
+    mesh.barrier()
 
 
 if __name__ == "__main__":

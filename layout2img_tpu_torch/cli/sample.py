@@ -28,6 +28,17 @@ the weights raises, naming both values. Runs on the GPU; ``--device cpu``
 asks for the CPU. ``--obj_budget`` is refused where compaction is not
 exact (the v1 mask trunk, legacy attention).
 
+Under ``torchrun`` (``torchrun --nproc_per_node=W -m
+layout2img_tpu_torch.cli.sample ...``; NCCL on the card, gloo with
+``--device cpu``) the layout batch is sharded over the W ranks with the
+weights replicated, as the JAX CLI shards it over its devices
+(``layout2img_tpu/cli/sample.py:211-239``): every rank reads every layout
+in the same order, pads each batch up to a multiple of W (the pad rows are
+dropped), draws the latents of the padded global batch and keeps its rows,
+and writes its rows' JPEGs under their global indices; the files equal one
+process's at ``--batch_size`` rounded up to a multiple of W. Rank 0 alone
+prints.
+
 The special families sample from ``--ckpt_dir`` only, as in the JAX CLI
 (``layout2img_tpu/cli/sample.py:95-165``), their sizes read off the
 checkpoint: ``--model ours_ed`` splits each layout into its fg/bg streams
@@ -48,7 +59,6 @@ import torch
 
 from layout2img_tpu_torch.cli.presets import dataset_spec, experiment
 from layout2img_tpu_torch.data.synthetic import synthetic_layouts
-from layout2img_tpu_torch.device import resolve_device
 from layout2img_tpu_torch.models.generators import (LostGANGenerator, make_generator,
                                                    obj_budget_error)
 from layout2img_tpu_torch.sample import make_sample_fn
@@ -173,8 +183,11 @@ def layout_batches(args, num_classes: int):
             yield synthetic_layouts(rng, args.batch_size, SYNTHETIC_OBJECTS, num_classes)
         return
     from layout2img_tpu_torch.cli.train import build_dataset
+    from layout2img_tpu_torch.parallel.mesh import DataMesh, use
 
-    for batch in build_dataset(args, dataset_spec(args.dataset)[1], eval_mode=True):
+    with use(DataMesh()):  # every rank reads every layout (a loader of one process)
+        loader = build_dataset(args, dataset_spec(args.dataset)[1], eval_mode=True)
+    for batch in loader:
         yield {"boxes": batch["boxes"], "labels": batch["labels"]}
 
 
@@ -211,10 +224,17 @@ def special_sampler(args, device: torch.device, dtype: torch.dtype):
 
 
 def main(argv=None):
+    from layout2img_tpu_torch.parallel.mesh import launched
+
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    if experiment(args.model).special:
-        return main_special(args, device)
+    with launched(args.device) as mesh:
+        if experiment(args.model).special:
+            return main_special(args, mesh)
+        _main(args, mesh)
+
+
+def _main(args, mesh) -> None:
+    device = mesh.device
     sources = [s for s in ("ckpt_dir", "torch_ckpt", "weights") if getattr(args, s)]
     if len(sources) != 1:
         raise SystemExit("give one of --ckpt_dir, --torch_ckpt and --weights")
@@ -233,26 +253,38 @@ def main(argv=None):
 
     write_samples(args, lambda batch, rng: sample(torch.from_numpy(batch["boxes"]),
                                                   torch.from_numpy(batch["labels"]), rng),
-                  gen.label_embedding.num_embeddings, device)
+                  gen.label_embedding.num_embeddings, mesh)
 
 
-def write_samples(args, draw, num_classes: int, device: torch.device) -> None:
+def write_samples(args, draw, num_classes: int, mesh) -> None:
     """``--num_img`` draws of ``draw(batch, rng)`` for each batch of the
-    run's layouts, written as JPEGs; latents from ``--seed``."""
+    run's layouts, written as JPEGs; latents from ``--seed``. Under a
+    data-parallel mesh every rank reads every layout, the batch is padded
+    up to a multiple of W (JAX's batch over its devices), and each rank
+    draws its rows and writes their images under their global indices."""
     os.makedirs(args.sample_path, exist_ok=True)
-    z_rng = torch.Generator(device=device).manual_seed(args.seed)
+    padded = mesh.padded(args.batch_size)
+    if mesh.world > 1 and mesh.rank == 0:
+        pad_note = (f" (batch padded {args.batch_size} -> {padded})"
+                    if padded != args.batch_size else "")
+        print(f"sampling data-parallel over {mesh.world} ranks{pad_note}")
+    z_rng = torch.Generator(device=mesh.device).manual_seed(args.seed)
     idx = 0
     for batch in layout_batches(args, num_classes):
-        batch, n = pad_tail(batch, args.batch_size)
+        batch, n = pad_tail(batch, padded)
+        mine, first, real = mesh.padded_rows(batch, n)
         for j in range(args.num_img):
-            write_images(draw(batch, z_rng).float().cpu().numpy()[:n], args.sample_path, idx, j)
+            images = draw(mine, z_rng).float().cpu().numpy()[:real]
+            write_images(images, args.sample_path, idx + first, j)
         idx += n
         if args.max_layouts and idx >= args.max_layouts:
             break
-    print(f"wrote {idx} layouts x {args.num_img} samples to {args.sample_path}")
+    mesh.barrier()
+    if mesh.rank == 0:
+        print(f"wrote {idx} layouts x {args.num_img} samples to {args.sample_path}")
 
 
-def main_special(args, device: torch.device) -> None:
+def main_special(args, mesh) -> None:
     """``cli.sample`` for ``--model ours_ed`` and ``--model layout2im``."""
     if not args.ckpt_dir or args.torch_ckpt or args.weights:
         raise SystemExit(f"{args.model} sampling requires --ckpt_dir (and no other source)")
@@ -263,7 +295,7 @@ def main_special(args, device: torch.device) -> None:
         raise SystemExit(f"--model {args.model} is a 64px family; got --img_size {args.img_size}")
     args.img_size = 64
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    write_samples(args, *special_sampler(args, device, dtype), device)
+    write_samples(args, *special_sampler(args, mesh.device, dtype), mesh)
 
 
 if __name__ == "__main__":

@@ -316,14 +316,11 @@ def build_networks(args, exp, device: torch.device):
 
 
 def main(argv=None):
-    from layout2img_tpu_torch.parallel.mesh import make_mesh, shutdown
+    from layout2img_tpu_torch.parallel.mesh import launched
 
     args = parse_args(argv)
-    mesh = make_mesh(args.device)
-    try:
+    with launched(args.device) as mesh:
         _main(args, mesh)
-    finally:
-        shutdown()
 
 
 def _main(args, mesh) -> None:
@@ -673,7 +670,7 @@ def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.
     epoch, as in the JAX CLI): each rank's own, so the pool is W times that. With ``prepare`` (the special families) the
     pool is the prepared batches and ``sample_fn(batch, rng)`` takes whole
     batches (``PeriodicEval(batch_mode=True)``)."""
-    from layout2img_tpu_torch.parallel.mesh import current
+    from layout2img_tpu_torch.parallel.mesh import DataMesh, current, use
     from layout2img_tpu_torch.train.eval_hook import PeriodicEval
 
     batches = iter(loader)
@@ -682,7 +679,10 @@ def build_evaluator(args, sample_fn, loader, device: torch.device, log: logging.
     if prepare is not None:
         pool = [prepare(b) for b in pool]
         batch_fn = sample_fn
-        sample_fn = lambda params, batch, rng: batch_fn(batch, rng)  # noqa: E731 (no EMA here)
+
+        def sample_fn(params, batch, rng):  # no EMA here
+            with use(DataMesh()):  # each rank's own pool and seed: latents drawn for it alone
+                return batch_fn(batch, rng)
     evaluator = PeriodicEval(sample_fn, pool, inception_weights=args.inception_weights,
                              device=device, seed=args.seed, batch_mode=prepare is not None,
                              mesh=current().data_view())

@@ -139,6 +139,23 @@ class DataMesh:
         n = t.shape[0] // self.data_size
         return t[self.data_index * n:(self.data_index + 1) * n]
 
+    def padded(self, b: int) -> int:
+        """b rounded up to a multiple of the data groups: the global batch a
+        sharded sampler runs (JAX pads its batch up to the device count)."""
+        return -(-b // self.data_size) * self.data_size
+
+    def padded_rows(self, batch: dict, n: int) -> tuple[dict, int, int]:
+        """This rank's rows of ``batch``, a global batch of arrays or
+        tensors padded up to a multiple of the data groups whose first n
+        rows are real: (its rows, the index of its first row in the
+        batch, the count of real rows among them)."""
+        size = len(next(iter(batch.values())))
+        if size % self.data_size:
+            raise ValueError(f"a batch of {size} rows does not split into {self.data_size} shards")
+        first = self.data_index * (size // self.data_size)
+        real = min(max(n - first, 0), size // self.data_size)
+        return {k: self.rows(v) for k, v in batch.items()}, first, real
+
     def stats_axis(self) -> tuple[Any, int]:
         """(group, ranks) over which a batch statistic sums: every rank for
         row shards, else the data axis."""
@@ -299,6 +316,22 @@ def make_mesh(device: str | torch.device | None = None, backend: str | None = No
     mesh = initialize(device, backend) if "WORLD_SIZE" in os.environ else world(device)
     _current[0] = mesh
     return mesh
+
+
+@contextlib.contextmanager
+def launched(device: str | torch.device | None = None,
+             backend: str | None = None) -> Iterator[DataMesh]:
+    """``make_mesh`` for the block (a CLI's run): a process group it forms
+    is destroyed after the block; one formed before it (a program that runs
+    several CLI calls in one launch) is kept, and its mesh is current again."""
+    prev, formed = _current[0], not dist.is_initialized()
+    try:
+        yield make_mesh(device, backend)
+    finally:
+        if formed:
+            shutdown()
+        else:
+            _current[0] = prev
 
 
 def make_mesh_2d(mesh: DataMesh, model_parallel: int, mode: str = "tensor") -> DataMesh:

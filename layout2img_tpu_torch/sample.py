@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from layout2img_tpu_torch.models.generators import obj_budget_error
+from layout2img_tpu_torch.parallel import mesh as data_mesh
 from layout2img_tpu_torch.utils.casting import cast_floating  # noqa: F401  (re-exported)
 
 
@@ -26,6 +27,20 @@ def truncated_normal(shape: tuple[int, ...], truncation: float, generator: torch
     z = torch.empty(shape, device=generator.device)
     nn.init.trunc_normal_(z, a=-truncation, b=truncation, generator=generator)
     return z.to(device=device, dtype=dtype)
+
+
+def global_truncated_normal(shape: tuple[int, ...], truncation: float,
+                            generator: torch.Generator, device: torch.device,
+                            dtype: torch.dtype) -> torch.Tensor:
+    """This rank's rows of ``truncated_normal`` drawn for the global batch:
+    ``shape[0]`` rows per data group, as many times more drawn as there are
+    groups, so that each rank keeps what one process draws at the global
+    batch (``train/step.py::global_normal``). In one process it is
+    ``truncated_normal``."""
+    mesh = data_mesh.current()
+    full = truncated_normal((shape[0] * mesh.data_size, *shape[1:]), truncation, generator,
+                            generator.device, torch.float32)
+    return mesh.rows(full).to(device=device, dtype=dtype)
 
 
 _M32 = 0xFFFFFFFF
@@ -82,7 +97,10 @@ def make_sample_fn(generator: nn.Module, z_dim: int = 128, truncation: float = 2
     ``generator`` already holds its weights in ``dtype`` on its device.
     ``obj_budget > 0`` moves the valid object slots to the front (stable
     argsort) and runs G on the first K only: the same images when K covers
-    every valid object, since z keeps its full-width per-slot draws."""
+    every valid object, since z keeps its full-width per-slot draws. Under
+    a data-parallel mesh (``parallel/mesh.py``) ``boxes`` and ``labels``
+    are this rank's rows of the global batch and the latents its rows of
+    the global draw (``global_truncated_normal``)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"sampling dtype must be float32 or bfloat16, got {dtype}")
     why = obj_budget_error(generator) if obj_budget else None
@@ -96,8 +114,8 @@ def make_sample_fn(generator: nn.Module, z_dim: int = 128, truncation: float = 2
         b, o = labels.shape
         boxes = boxes.to(device=device, dtype=torch.float32)
         labels = labels.to(device=device, dtype=torch.long)
-        z = truncated_normal((b, o, z_dim), truncation, rng, device, dtype)
-        z_im = truncated_normal((b, z_dim), truncation, rng, device, dtype)
+        z = global_truncated_normal((b, o, z_dim), truncation, rng, device, dtype)
+        z_im = global_truncated_normal((b, z_dim), truncation, rng, device, dtype)
         if 0 < obj_budget < o:
             order = torch.argsort((labels == 0).to(torch.int32), dim=1, stable=True)[:, :obj_budget]
             labels = labels.gather(1, order)

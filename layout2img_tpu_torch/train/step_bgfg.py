@@ -110,8 +110,9 @@ def make_bgfg_sample_fn(generator: BgFgGenerator, truncation: float = 2.0,
     ``labels`` and the streams' keys (``split_fg_bg_batch``), tensors or
     arrays; ``generator`` already holds its weights in ``dtype`` (bf16
     serves with bf16 latents; boxes stay f32). The generator's mode is
-    restored after each call."""
-    from layout2img_tpu_torch.sample import truncated_normal
+    restored after each call. Under a data-parallel mesh the batch is this
+    rank's rows and each latent its rows of the global draw."""
+    from layout2img_tpu_torch.sample import global_truncated_normal as draw
 
     @torch.no_grad()
     def sample(batch: dict, rng: torch.Generator) -> torch.Tensor:
@@ -123,9 +124,8 @@ def make_bgfg_sample_fn(generator: BgFgGenerator, truncation: float = 2.0,
             t[k] = t[k].float()
         b, o = t["labels_fg"].shape
         z = generator.z_dim
-        z_fg, z_bg = (truncated_normal((b, o, z), truncation, rng, device, dtype) for _ in range(2))
-        z_im_fg, z_im_bg = (truncated_normal((b, z), truncation, rng, device, dtype)
-                            for _ in range(2))
+        z_fg, z_bg = (draw((b, o, z), truncation, rng, device, dtype) for _ in range(2))
+        z_im_fg, z_im_bg = (draw((b, z), truncation, rng, device, dtype) for _ in range(2))
         was_training = generator.training
         generator.eval()
         try:

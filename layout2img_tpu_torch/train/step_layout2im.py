@@ -163,15 +163,17 @@ def make_layout2im_sample_fn(generator: nn.Module, truncation: float = 2.0,
     ``labels`` and ``boxes`` (tensors or arrays); ``generator`` already
     holds its weights in ``dtype``, and the masks and z are cast to it (f32
     masks would promote the trunk back to f32). The generator's mode is
-    restored after each call."""
-    from layout2img_tpu_torch.sample import truncated_normal
+    restored after each call. Under a data-parallel mesh the batch is this
+    rank's rows and z its rows of the global draw."""
+    from layout2img_tpu_torch.sample import global_truncated_normal
 
     @torch.no_grad()
     def sample(batch: dict, rng: torch.Generator) -> torch.Tensor:
         device = next(generator.parameters()).device
         boxes = torch.as_tensor(batch["boxes"]).to(device=device, dtype=torch.float32)
         labels = torch.as_tensor(batch["labels"]).to(device=device, dtype=torch.long)
-        z = truncated_normal((*labels.shape, generator.z_dim), truncation, rng, device, dtype)
+        z = global_truncated_normal((*labels.shape, generator.z_dim), truncation, rng, device,
+                                    dtype)
         was_training = generator.training
         generator.eval()
         try:

@@ -35,6 +35,9 @@ and its train step) against the JAX package's, on the CPU.
   moves the gradient into the streams by 0.5%, and their ISLA projections'
   gradients, small sums of large terms, by 2-4%. Two ulps of noise on G's
   weights move every G gradient that misses JAX's by more than 1e-3 as far.
+  Confirmed by the same step at a key whose latents leave no input of the
+  fusion block's ReLUs within 1e-4 of 0: there every G gradient holds 1e-3
+  (``test_bgfg_step_matches_jax_at_1e3_without_a_gate_tie``).
 - ``TrainConfig(mixed_precision=True)`` changes nothing: the step is the
   f32 one, as in JAX, whose step never reads the flag.
 """
@@ -68,7 +71,8 @@ from layout2img_tpu_torch.utils.convert import (bgfg_generator_state_dict_from_j
                                                 discriminator_state_dict_from_jax,
                                                 generator_state_dict_from_jax,
                                                 init_bgfg_generator, init_discriminator)
-from test_torch_port_step_knobs import _few_threads, fast_jit  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import _few_threads  # noqa: F401  (autouse)
+from test_torch_port_step_knobs import FAST_COMPILE, fast_jit
 
 TOL = 2e-3
 CH, B, O, Z = 4, 2, 4, 128
@@ -246,10 +250,9 @@ def _batch(rng) -> dict:
 
 
 @pytest.fixture(scope="module")
-def step_pair():
-    """The JAX step's new state, gradients and metrics, and ``port(config,
-    noise=0)``, the port's step from the same weights and latents (G's
-    weights first scaled by 1 + noise * N(0, 1) when ``noise``)."""
+def jax_step():
+    """The batch (numpy), the JAX step's initial state and batch, and the
+    JAX step compiled once (each key then runs without a compile)."""
     rng = np.random.default_rng(9)
     batch = _batch(rng)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -270,12 +273,23 @@ def step_pair():
                              g_state=rest(g_vars), d_params=d_vars["params"], d_state=rest(d_vars),
                              g_opt_state=tx.init(g_vars["params"]),
                              d_opt_state=tx.init(d_vars["params"]), g_tx=tx, d_tx=tx)
-    key = jax.random.PRNGKey(2)
+    step = jax.jit(jax_make_bgfg_train_step(jgen, jdisc, cfg)).lower(
+        state, jbatch, jax.random.PRNGKey(0)).compile(FAST_COMPILE)
+    return SimpleNamespace(batch=batch, jbatch=jbatch, state=state, jgen=jgen, step=step)
+
+
+def _step_pair(setup, key_seed: int):
+    """The JAX step's new state, gradients and metrics from
+    ``PRNGKey(key_seed)``, its latents, and ``port(config, noise=0)``, the
+    port's step from the same weights and latents (G's weights first scaled
+    by 1 + noise * N(0, 1) when ``noise``), with the port's step."""
+    batch, state = setup.batch, setup.state
+    key = jax.random.PRNGKey(key_seed)
     # the JAX step's latents, drawn from its key as it draws them
     keys = jax.random.split(key, 5)
     latents = [np.asarray(jax.random.normal(keys[i], shape))
                for i, shape in enumerate([(B, O, Z), (B, O, Z), (B, Z), (B, Z)])]
-    new, metrics = fast_jit(jax_make_bgfg_train_step(jgen, jdisc, cfg))(state, jbatch, key)
+    new, metrics = setup.step(state, setup.jbatch, key)
 
     def tree(params, rest):
         return jax.tree_util.tree_map(np.asarray, {"params": params, **rest})
@@ -286,7 +300,8 @@ def step_pair():
         d=discriminator_state_dict_from_jax(tree(new.d_params, new.d_state)),
         g_grad=bgfg_generator_state_dict_from_jax(tree(new.g_opt_state[0].mu, state.g_state)),
         d_grad=discriminator_state_dict_from_jax(tree(new.d_opt_state[0].mu, state.d_state)),
-        metrics={k: float(v) for k, v in metrics.items()}, jax_gen=(jgen, g_vars))
+        metrics={k: float(v) for k, v in metrics.items()}, jax_gen=(setup.jgen, g_vars),
+        latents=latents, batch=batch)
 
     def port(config: TrainConfig, noise: float = 0.0):
         gen = _port_bgfg(g_vars)
@@ -305,6 +320,11 @@ def step_pair():
         return st, m
 
     return want, port, port(TrainConfig(use_vgg_loss=False))
+
+
+@pytest.fixture(scope="module")
+def step_pair(jax_step):
+    return _step_pair(jax_step, 2)
 
 
 def _grad_gaps(module, grads: dict, tol: float) -> dict:
@@ -361,6 +381,47 @@ def test_bgfg_step_gradient_gap_is_the_f32_spread(step_pair):
             spread = ((p - grads[name].grad).norm() / p.norm()).item()
             assert spread >= 0.5 * err / norm, (name, spread, err / norm)
     assert wide > 0  # the wide bar is needed at this seed
+
+
+TIE_FREE_KEY = 5910  # a PRNGKey whose latents leave the fusion ReLUs no input near 0
+
+
+@pytest.fixture(scope="module")
+def tie_free_pair(jax_step):
+    return _step_pair(jax_step, TIE_FREE_KEY)
+
+
+def _fusion_gate_margin(want) -> float:
+    """The least |input| of the fusion block's ReLUs (its shortcut's, whose
+    input equals its main path's first, and its main path's second) in the
+    step's G forward (training mode) on the step's latents."""
+    gen = _port_bgfg(want.jax_gen[1]).train()
+    seen = []
+    for m in (gen.combination.bn, gen.combination.model[3]):
+        m.register_forward_hook(lambda mod, i, o: seen.append(o.abs().min().item()))
+    tb = {k: _t(v) for k, v in want.batch.items()}
+    z_fg, z_bg, z_im_fg, z_im_bg = (_t(x) for x in want.latents)
+    with torch.no_grad():
+        gen(z_fg, tb["boxes_fg"], tb["labels_fg"].long(), z_bg, tb["boxes_bg"],
+            tb["labels_bg"].long(), z_im_fg, z_im_bg)
+    return min(seen)
+
+
+def test_bgfg_step_matches_jax_at_1e3_without_a_gate_tie(step_pair, tie_free_pair):
+    """The cause of G's 5e-2 bar, confirmed: at key 2 an input of the
+    fusion block's ReLUs lies within 1e-5 of 0 (4.2e-6, inside the two
+    forwards' f32 spread of 2e-5), and at ``TIE_FREE_KEY`` none lies within
+    1e-4 (1.08e-4). There, on the same weights and batch, every G gradient
+    agrees with JAX's to 1e-3 of its norm, as every other family's does
+    (read: 5.5e-6 at most), and D's and the losses hold their bars."""
+    assert _fusion_gate_margin(step_pair[0]) < 1e-5
+    want, _, (state, metrics) = tie_free_pair
+    assert _fusion_gate_margin(want) >= 1e-4
+    for k, v in want.metrics.items():
+        assert abs(metrics[k].item() - v) <= 2e-3, (k, metrics[k].item(), v)
+    for module, grads in ((state.generator, want.g_grad), (state.discriminator, want.d_grad)):
+        for name, (err, bar, _) in _grad_gaps(module, grads, 1e-3).items():
+            assert err <= bar, (name, err, bar)
 
 
 def test_bgfg_mixed_precision_flag_changes_nothing(step_pair):

@@ -37,7 +37,7 @@ _MODULES = ("bench", "bench_eval", "cli.evaluate", "cli.export", "cli.export_tor
             "scripts.launch_multihost", "train.checkpoint",
             "train.ema", "train.eval_hook", "train.step", "train.step_bgfg",
             "train.step_layout2im", "utils.casting", "utils.logging", "utils.reference",
-            "scripts.train_conditioning_check")
+            "scripts.train_conditioning_check", "scripts.bench_inference", "scripts.profile_step")
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +75,8 @@ def _no_cuda(monkeypatch):
                                    "train_cli_coco", "train_cli_eval", "evaluate_cli",
                                    "bench_eval", "train_cli_ours_ed", "train_cli_layout2im",
                                    "sample_cli_special", "init_special", "export_cli",
-                                   "export_cli_run", "conditioning_check"])
+                                   "export_cli_run", "conditioning_check", "bench_inference",
+                                   "profile_step"])
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     _no_cuda(monkeypatch)
     from layout2img_tpu_torch import bench, bench_eval
@@ -86,7 +87,8 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
     from layout2img_tpu_torch.device import resolve_device
     from layout2img_tpu_torch.models.discriminators import make_discriminator
     from layout2img_tpu_torch.models.generators import make_generator
-    from layout2img_tpu_torch.scripts import train_conditioning_check
+    from layout2img_tpu_torch.scripts import (bench_inference, profile_step,
+                                              train_conditioning_check)
     from layout2img_tpu_torch.utils.convert import (init_bgfg_generator, init_discriminator,
                                                     init_generator, init_layout2im_discriminators,
                                                     init_layout2im_generator, init_vgg)
@@ -130,6 +132,8 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path, entry):
         "export_cli_run": lambda: export_cli.main(["--run", str(tmp_path / "out")]),
         "conditioning_check": lambda: train_conditioning_check.main([
             "--ch", "4", "--image_out", str(tmp_path / "out")]),
+        "bench_inference": lambda: bench_inference.main(["--ch", "4"], env={"BENCH_K": "1"}),
+        "profile_step": lambda: profile_step.main(["--ch", "4", "--k", "1"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()

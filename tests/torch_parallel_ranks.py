@@ -325,6 +325,34 @@ def cli_rank(rank: int, argv: list[str], out_dir: str) -> None:
         f.write(str(code))
 
 
+# ---- cli.sample and cli.evaluate under 2 ranks ----
+
+def run_cli_calls(calls: list, out_dir: str, tag) -> None:
+    """Each (name, cli module, argv) of ``calls`` in turn, through
+    ``layout2img_tpu_torch.cli.<module>.main(argv)``; what it prints goes to
+    ``<name>.<tag>.out`` in ``out_dir``."""
+    import contextlib
+    import importlib
+
+    for name, module, argv in calls:
+        main = importlib.import_module(f"layout2img_tpu_torch.cli.{module}").main
+        with open(os.path.join(out_dir, f"{name}.{tag}.out"), "w") as f, \
+                contextlib.redirect_stdout(f):
+            main(argv)
+
+
+def cli_calls_rank(rank: int, calls: list, out_dir: str) -> None:
+    """Rank program: ``run_cli_calls`` tagged with the rank, in one process
+    group that every call finds formed (``parallel/mesh.py::launched``)."""
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+
+    data_mesh.initialize("cpu")
+    try:
+        run_cli_calls(calls, out_dir, rank)
+    finally:
+        data_mesh.shutdown()
+
+
 # ---- the special families' steps under 2 ranks ----
 
 def special_state(family: str):
