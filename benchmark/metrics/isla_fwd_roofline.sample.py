@@ -1,0 +1,13 @@
+"""The ISLA forward kernel's share of its bytes roofline in a sampled batch."""
+
+from benchmark import yardstick
+
+
+def read(ctx):
+    if ctx.kind != "sample":
+        return None
+    t = yardstick.seconds_where(ctx.events, lambda n: yardstick.ISLA_FORWARD in n)
+    if not t:
+        return None
+    nbytes = sum(yardstick.isla_forward_bytes(x, m, ctx.itemsize) for x, m in ctx.isla_calls)
+    return yardstick.share_pct(nbytes / yardstick.HBM_BYTES_PER_S, t / ctx.traced_units)
