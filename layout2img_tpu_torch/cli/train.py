@@ -44,7 +44,14 @@ the live generator's buffers). ``--steps N`` caps the steps this run takes
   files (the generator with ``legacy_attention``; their Adam moments
   restart), ``--vgg_weights`` loads torchvision VGG19 features (else seeded
   random filters), ``--profile_dir`` writes a ``torch.profiler`` trace of
-  steps 10-20, ``--tensorboard`` mirrors the metrics into tensorboardX.
+  steps 10-20, which carries the program's spans (``utils/tracing.py``):
+  ``train.step`` over ``train.cast``, ``train.g_forward``,
+  ``train.d_forward`` (with ``d.objects``), ``train.vgg``,
+  ``train.backward``, ``train.adam``, ``train.ema`` and
+  ``mesh.all_reduce``, and ``data.wait`` between steps;
+  ``tracing.enable(True)`` records them without a profiler, into an
+  in-memory ring a script reads (``tracing.records()``).
+  ``--tensorboard`` mirrors the metrics into tensorboardX.
 
 Without ``--mixed_precision`` the step runs in f32 with TF32 off in cuDNN
 and matmul, as the JAX package's default ``TrainConfig`` does. The object

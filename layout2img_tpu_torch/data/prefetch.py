@@ -7,7 +7,8 @@ then ``non_blocking`` to the device on a side stream of its own. The
 consumer's stream waits on an event recorded after the copies, and every
 tensor is marked with ``record_stream`` for the consumer's stream, so the
 caching allocator does not hand the buffer out again while the consumer
-still uses it. On the CPU the arrays only become tensors.
+still uses it. On the CPU the arrays only become tensors. The consumer's
+wait for each batch is the span ``data.wait`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from layout2img_tpu_torch.utils import tracing
 
 
 def device_prefetch(iterable: Iterable[dict], device: torch.device | str, size: int = 2,
@@ -64,7 +67,8 @@ def device_prefetch(iterable: Iterable[dict], device: torch.device | str, size: 
     thread.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("data.wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, BaseException):

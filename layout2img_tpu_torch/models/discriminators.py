@@ -34,6 +34,9 @@ of the images (inside the train step), each trunk block whose input splits
 before the crops; the image score's spatial sum is model-summed and RoIAlign
 sums the ranks' partial crops. The crops and everything after them are whole
 on every rank.
+
+The object path, from its first block through RoIAlign and the object and
+app scores, is the span ``d.objects`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from layout2img_tpu_torch.nn.spectral import SNDense, SNEmbed
 from layout2img_tpu_torch.ops.bbox import xywh_to_xyxy
 from layout2img_tpu_torch.ops.roi import dual_scale_roi_align, roi_align
 from layout2img_tpu_torch.parallel import mesh as data_mesh
+from layout2img_tpu_torch.utils import tracing
 
 # per size: (trunk blocks as (in, out) channel multipliers of ch, 0 = the
 # image, and downsample), the blocks that may be rematerialized, the image
@@ -150,6 +154,7 @@ class LayoutDiscriminator(nn.Module):
             out = {"image": getattr(self, self.score_name)(pooled),
                    "valid": (labels != 0).to(torch.float32)}
 
+        with data_mesh.row_shards(False), tracing.span("d.objects"):
             if s == 128:
                 obj_s = on_rows(1, self.block_obj3, self.block_obj4)  # 32x32, scale 1/4
                 obj_l = on_rows(2, self.block_obj4)  # 16x16, scale 1/8

@@ -60,7 +60,7 @@ def _global_moments(mesh, xf: torch.Tensor, mask: torch.Tensor | None
         w = mask.to(torch.float32)[:, None, None, None]
         m, count = xf * w, w.sum() * hw
     sums = mesh.sum(torch.stack([m.sum(dim=(0, 2, 3)), (m * xf).sum(dim=(0, 2, 3))]))
-    n = mesh.sum_detached(count).clamp_min(1.0)
+    n = mesh.sum_detached(count, "bn_sum").clamp_min(1.0)
     return sums[0] / n, sums[1] / n, n
 
 

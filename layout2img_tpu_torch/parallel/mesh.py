@@ -64,7 +64,9 @@ modes, as in JAX:
 
 Every collective is an all-reduce in f32 (an all-gather is the all-reduce of
 a zero-padded buffer), so one code path runs under NCCL and under gloo,
-whose all-gather takes CPU tensors only.
+whose all-gather takes CPU tensors only. Each is the span
+``mesh.all_reduce`` (``utils/tracing.py``), its ``kind`` named by the
+caller (grads, bn_sum, metrics, other).
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from layout2img_tpu_torch.device import resolve_device
+from layout2img_tpu_torch.utils import tracing
 
 LAUNCH_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 MODES = ("tensor", "spatial")  # of the 2-D mesh
@@ -167,22 +170,23 @@ class DataMesh:
         """The sum of a batch statistic over ``stats_axis``, differentiable
         (the backward sums the gradients over the same ranks)."""
         group, n = self.stats_axis()
-        return t if n == 1 else _Sum.apply(t, group)
+        return t if n == 1 else _Sum.apply(t, group, "bn_sum")
 
     @torch.no_grad()
-    def sum_detached(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of t over every rank, outside autograd."""
+    def sum_detached(self, t: torch.Tensor, kind: str = "other") -> torch.Tensor:
+        """The sum of t over every rank, outside autograd (``kind`` names the
+        span)."""
         t = t.detach().clone()
         if self.group is not None:
-            dist.all_reduce(t, group=self.group)
+            _all_reduce(t, self.group, kind)
         return t
 
     @torch.no_grad()
-    def data_sum_detached(self, t: torch.Tensor) -> torch.Tensor:
+    def data_sum_detached(self, t: torch.Tensor, kind: str = "other") -> torch.Tensor:
         """The sum of t over the data axis, outside autograd."""
         t = t.detach().clone()
         if self.data_size > 1:
-            dist.all_reduce(t, group=self.data_axis)
+            _all_reduce(t, self.data_axis, kind)
         return t
 
     def mean_metrics(self, metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -192,7 +196,7 @@ class DataMesh:
             return metrics
         keys = sorted(metrics)
         flat = self.data_sum_detached(torch.stack([metrics[k].detach().to(torch.float32)
-                                                   for k in keys])) / self.data_size
+                                                   for k in keys]), "metrics") / self.data_size
         return dict(zip(keys, flat.unbind()))
 
     def any(self, flag: bool) -> bool:
@@ -243,12 +247,19 @@ class DataMesh:
         return torch.cat(parts).cpu().numpy()
 
 
+def _all_reduce(t: torch.Tensor, group, kind: str) -> None:
+    """Sum t over ``group`` in place: the span ``mesh.all_reduce`` of
+    ``kind``."""
+    with tracing.span("mesh.all_reduce", kind=kind):
+        dist.all_reduce(t, group=group)
+
+
 def _mean_over(grads: list[torch.Tensor], group, n: int) -> list[torch.Tensor]:
     """The tensors summed over ``group`` and divided by n, in one f32 buffer."""
     if n == 1 or not grads:
         return grads
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads])
-    dist.all_reduce(flat, group=group)
+    _all_reduce(flat, group, "grads")
     flat.div_(n)
     out, i = [], 0
     for g in grads:
@@ -455,10 +466,10 @@ def dropout(x: torch.Tensor, p: float, training: bool = True, feature: bool = Fa
 
 # ---- the 2-D mesh's crossings between whole and sharded tensors ----
 
-def _f32_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _f32_all_reduce(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     """The sum of t over ``group``, in a fresh f32 buffer."""
     buf = t.detach().to(torch.float32, copy=True)
-    dist.all_reduce(buf, group=group)
+    _all_reduce(buf, group, kind)
     return buf
 
 
@@ -470,21 +481,22 @@ def _all_gather(t: torch.Tensor, dim: int, group, n: int, index: int) -> torch.T
     shape[dim] = k * n
     buf = torch.zeros(shape, dtype=torch.float32, device=t.device)
     buf.narrow(dim, index * k, k).copy_(t)
-    dist.all_reduce(buf, group=group)
+    _all_reduce(buf, group, "other")
     return buf.to(t.dtype)
 
 
 class _Sum(torch.autograd.Function):
-    """Sum over a group; the backward sums the gradients over it."""
+    """Sum over a group; the backward sums the gradients over it (both
+    spans of ``kind``)."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return _f32_all_reduce(t, group).to(t.dtype)
+    def forward(ctx, t, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return _f32_all_reduce(t, group, kind).to(t.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _f32_all_reduce(g, ctx.group).to(g.dtype), None
+        return _f32_all_reduce(g, ctx.group, ctx.kind).to(g.dtype), None, None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -498,7 +510,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _f32_all_reduce(g, ctx.mesh.model_group).to(g.dtype), None
+        return _f32_all_reduce(g, ctx.mesh.model_group, "other").to(g.dtype), None
 
 
 class _GatherModel(torch.autograd.Function):
@@ -545,7 +557,7 @@ class _JoinRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        whole = _f32_all_reduce(g, ctx.mesh.model_group).to(g.dtype)
+        whole = _f32_all_reduce(g, ctx.mesh.model_group, "other").to(g.dtype)
         return whole.narrow(-2, ctx.mesh.model_index * ctx.h, ctx.h).contiguous(), None
 
 
@@ -563,7 +575,7 @@ class _Halo(torch.autograd.Function):
                             device=x.device)
         edges[k, 0] = x[..., :p, :]
         edges[k, 1] = x[..., -p:, :]
-        dist.all_reduce(edges, group=mesh.model_group)
+        _all_reduce(edges, mesh.model_group, "other")
         above = edges[k - 1, 1] if k > 0 else torch.zeros_like(edges[k, 0])
         below = edges[k + 1, 0] if k < m - 1 else torch.zeros_like(edges[k, 0])
         return torch.cat([above.to(x.dtype), x, below.to(x.dtype)], dim=-2)
@@ -578,7 +590,7 @@ class _Halo(torch.autograd.Function):
             edges[k - 1, 1] = g[..., :p, :]
         if k < m - 1:
             edges[k + 1, 0] = g[..., -p:, :]
-        dist.all_reduce(edges, group=mesh.model_group)
+        _all_reduce(edges, mesh.model_group, "other")
         dx = g[..., p:-p, :].to(torch.float32, copy=True)
         dx[..., :p, :] += edges[k, 0]
         dx[..., -p:, :] += edges[k, 1]
@@ -599,7 +611,7 @@ def model_sum(t: torch.Tensor) -> torch.Tensor:
     """The sum of the model group's parts of a spatial sum (each rank's over
     its rows), on every rank; the backward sums the gradients likewise."""
     mesh = current()
-    return t if mesh.model == 1 else _Sum.apply(t, mesh.model_group)
+    return t if mesh.model == 1 else _Sum.apply(t, mesh.model_group, "other")
 
 
 def row_mean(t: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@ Truncated-normal latents from an explicit ``torch.Generator``, eval-mode
 generator, optional object-budget compaction; ``latents_from_seed`` draws
 the latents of an exported artifact from a seed tensor instead. ``dtype=torch.bfloat16``
 serves with bf16 weights and latents (``utils.casting.cast_floating``);
-boxes stay f32 for coordinate precision either way.
+boxes stay f32 for coordinate precision either way. Each batch of
+``make_sample_fn`` is the span ``sample`` (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 
 from layout2img_tpu_torch.models.generators import obj_budget_error
 from layout2img_tpu_torch.parallel import mesh as data_mesh
+from layout2img_tpu_torch.utils import tracing
 from layout2img_tpu_torch.utils.casting import cast_floating  # noqa: F401  (re-exported)
 
 
@@ -111,16 +113,18 @@ def make_sample_fn(generator: nn.Module, z_dim: int = 128, truncation: float = 2
 
     @torch.inference_mode()
     def sample(boxes: torch.Tensor, labels: torch.Tensor, rng: torch.Generator) -> torch.Tensor:
-        b, o = labels.shape
-        boxes = boxes.to(device=device, dtype=torch.float32)
-        labels = labels.to(device=device, dtype=torch.long)
-        z = global_truncated_normal((b, o, z_dim), truncation, rng, device, dtype)
-        z_im = global_truncated_normal((b, z_dim), truncation, rng, device, dtype)
-        if 0 < obj_budget < o:
-            order = torch.argsort((labels == 0).to(torch.int32), dim=1, stable=True)[:, :obj_budget]
-            labels = labels.gather(1, order)
-            boxes = boxes.gather(1, order[:, :, None].expand(-1, -1, 4))
-            z = z.gather(1, order[:, :, None].expand(-1, -1, z_dim))
-        return generator(z, boxes, labels, z_im)
+        with tracing.span("sample"):
+            b, o = labels.shape
+            boxes = boxes.to(device=device, dtype=torch.float32)
+            labels = labels.to(device=device, dtype=torch.long)
+            z = global_truncated_normal((b, o, z_dim), truncation, rng, device, dtype)
+            z_im = global_truncated_normal((b, z_dim), truncation, rng, device, dtype)
+            if 0 < obj_budget < o:
+                order = torch.argsort((labels == 0).to(torch.int32), dim=1,
+                                      stable=True)[:, :obj_budget]
+                labels = labels.gather(1, order)
+                boxes = boxes.gather(1, order[:, :, None].expand(-1, -1, 4))
+                z = z.gather(1, order[:, :, None].expand(-1, -1, z_dim))
+            return generator(z, boxes, labels, z_im)
 
     return sample

@@ -42,6 +42,13 @@ The knobs of ``TrainConfig``, with the JAX step's semantics:
 - ``ema_decay`` > 0: the EMA of G's parameters is updated after G's Adam
   step (``train/ema.py``).
 
+Spans (``utils/tracing.py``; recorded only under a profiler or
+``tracing.enable(True)``): ``train.step``, the root of each step, over
+``train.cast`` (``net``: g, d; mixed precision), ``train.g_forward``,
+``train.d_forward`` (``role``: real, fake, fused, for_g), ``train.vgg``,
+``train.backward`` and ``train.adam`` (``net``), ``train.ema``, and the
+collectives' ``mesh.all_reduce``.
+
 Data parallelism (``parallel/mesh.py``): each rank runs this step on its
 shard of the global batch; z and z_im are drawn for the global batch and
 cut to the rank's rows (before any budget compaction); the BN statistics,
@@ -73,19 +80,23 @@ from layout2img_tpu_torch.nn import remat
 from layout2img_tpu_torch.parallel import mesh as data_mesh
 from layout2img_tpu_torch.train.ema import ema_update
 from layout2img_tpu_torch.train.state import GANTrainState, TrainConfig
+from layout2img_tpu_torch.utils import tracing
 from layout2img_tpu_torch.utils.casting import cast_params
 
 
-def _apply_grads(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: torch.Tensor) -> None:
+def _apply_grads(opt: torch.optim.Optimizer, params: list[torch.Tensor], loss: torch.Tensor,
+                 net: str) -> None:
     """Set each parameter's ``.grad`` to this loss's gradient (replacing, not
     adding to, the last step's), averaged over the data-parallel ranks in
     one f32 buffer (``parallel/mesh.py::DataMesh.all_reduce_grads``), and
-    step the optimizer."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    step the optimizer; ``net`` ("d" or "g") names the spans."""
+    with tracing.span("train.backward", net=net):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
     for p, g in zip(params, data_mesh.current().all_reduce_grads(grads, params)):
         p.grad = g
-    opt.step()
+    with tracing.span("train.adam", net=net):
+        opt.step()
 
 
 def global_normal(rng: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype,
@@ -144,21 +155,27 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
     d_params = list(disc.parameters())
     dtype = torch.bfloat16 if config.mixed_precision else torch.float32
 
-    def cast(module: nn.Module) -> dict | None:
-        return cast_params(module, dtype) if config.mixed_precision else None
+    def cast(module: nn.Module, net: str) -> dict | None:
+        if not config.mixed_precision:
+            return None
+        with tracing.span("train.cast", net=net):
+            return cast_params(module, dtype)
 
     def g_apply(params, *args, **kwargs):
-        if "g" in config.remat:
-            return remat.checkpoint(_call, gen, params, *args, **kwargs)
-        return _call(gen, params, *args, **kwargs)
+        with tracing.span("train.g_forward"):
+            if "g" in config.remat:
+                return remat.checkpoint(_call, gen, params, *args, **kwargs)
+            return _call(gen, params, *args, **kwargs)
 
-    def d_apply(params, *args):
-        if "d" in config.remat:
-            return remat.checkpoint(_call, disc, params, *args)
-        return _call(disc, params, *args)
+    def d_apply(role: str, params, *args):
+        with tracing.span("train.d_forward", role=role):
+            if "d" in config.remat:
+                return remat.checkpoint(_call, disc, params, *args)
+            return _call(disc, params, *args)
 
     def with_latents(batch: dict, z: torch.Tensor, z_im: torch.Tensor) -> dict[str, torch.Tensor]:
-        with data_mesh.row_shards(data_mesh.current().mode == "spatial"):
+        with tracing.span("train.step"), \
+                data_mesh.row_shards(data_mesh.current().mode == "spatial"):
             return step(batch, z, z_im)
 
     def step(batch: dict, z: torch.Tensor, z_im: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -182,18 +199,18 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
         gen.train()
         disc.train()
 
-        fake = g_apply(cast(gen), z, boxes, labels, z_im, deterministic=deterministic)
+        fake = g_apply(cast(gen, "g"), z, boxes, labels, z_im, deterministic=deterministic)
 
         # ---- D update ----
-        d_cast = cast(disc)
+        d_cast = cast(disc, "d")
         if config.fused_d:
-            out = d_apply(d_cast, torch.cat([images, fake.detach()]), torch.cat([d_boxes, d_boxes]),
-                          torch.cat([d_labels, d_labels]))
+            out = d_apply("fused", d_cast, torch.cat([images, fake.detach()]),
+                          torch.cat([d_boxes, d_boxes]), torch.cat([d_labels, d_labels]))
             out_r = {k: v[:b] for k, v in out.items()}
             out_f = {k: v[b:] for k, v in out.items()}
         else:
-            out_r = d_apply(d_cast, images, d_boxes, d_labels)
-            out_f = d_apply(d_cast, fake.detach(), d_boxes, d_labels)
+            out_r = d_apply("real", d_cast, images, d_boxes, d_labels)
+            out_f = d_apply("fake", d_cast, fake.detach(), d_boxes, d_labels)
         metrics = {
             "d_loss_real": hinge_d_real(out_r["image"]),
             "d_loss_fake": hinge_d_fake(out_f["image"]),
@@ -206,10 +223,10 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
             metrics["d_loss_rapp"] = hinge_d_real(out_r["app"], valid)
             metrics["d_loss_fapp"] = hinge_d_fake(out_f["app"], valid)
             d_loss = d_loss + config.lamb_app * (metrics["d_loss_rapp"] + metrics["d_loss_fapp"])
-        _apply_grads(state.d_opt, d_params, d_loss)
+        _apply_grads(state.d_opt, d_params, d_loss, "d")
 
         # ---- G update, against the updated D ----
-        out_g = d_apply(cast(disc), fake, d_boxes, d_labels)
+        out_g = d_apply("for_g", cast(disc, "d"), fake, d_boxes, d_labels)
         metrics["g_loss_fake"] = g_adv(out_g["image"])
         metrics["g_loss_obj"] = g_adv(out_g["object"], valid)
         g_loss = config.lamb_obj * metrics["g_loss_obj"] + config.lamb_img * metrics["g_loss_fake"]
@@ -221,12 +238,14 @@ def make_train_step(state: GANTrainState, config: TrainConfig,
             g_loss = g_loss + metrics["pixel_loss"]
         if config.use_vgg_loss and vgg_loss is not None:
             # under mixed precision the VGG stack runs in bf16 too
-            metrics["feat_loss"] = vgg_loss(fake, images,
-                                            dtype=dtype if config.mixed_precision else None)
+            with tracing.span("train.vgg"):
+                metrics["feat_loss"] = vgg_loss(fake, images,
+                                                dtype=dtype if config.mixed_precision else None)
             g_loss = g_loss + metrics["feat_loss"]
-        _apply_grads(state.g_opt, g_params, g_loss)
+        _apply_grads(state.g_opt, g_params, g_loss, "g")
         if config.ema_decay > 0 and state.ema is not None:
-            ema_update(state.ema, gen, config.ema_decay)
+            with tracing.span("train.ema"):
+                ema_update(state.ema, gen, config.ema_decay)
 
         state.step += 1
         return data_mesh.current().mean_metrics(

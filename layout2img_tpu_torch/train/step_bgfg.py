@@ -71,7 +71,7 @@ def make_bgfg_train_step(state: GANTrainState, config: TrainConfig,
         d_loss = (config.lamb_obj * (hinge_d_real(out_r["object"], valid)
                                      + hinge_d_fake(out_f["object"], valid))
                   + config.lamb_img * (hinge_d_real(out_r["image"]) + hinge_d_fake(out_f["image"])))
-        _apply_grads(state.d_opt, d_params, d_loss)
+        _apply_grads(state.d_opt, d_params, d_loss, "d")
 
         # ---- G update, against the updated D ----
         out_g = disc(fake, boxes, labels)
@@ -84,7 +84,7 @@ def make_bgfg_train_step(state: GANTrainState, config: TrainConfig,
         if config.use_vgg_loss and vgg_loss is not None:
             metrics["feat_loss"] = vgg_loss(fake, images)
             g_loss = g_loss + metrics["feat_loss"]
-        _apply_grads(state.g_opt, g_params, g_loss)
+        _apply_grads(state.g_opt, g_params, g_loss, "g")
         state.step += 1
         return data_mesh.current().mean_metrics(
             {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),

@@ -119,7 +119,7 @@ def make_layout2im_train_step(state: GANTrainState, cfg: Layout2ImConfig) -> Cal
                                       + 0.5 * (hinge_d_fake(o_rec[key], valid)
                                                + hinge_d_fake(o_rand[key], valid)))
         d_loss = d_loss + cfg.lamb_cls * ce(o_real["class_logits"])
-        _apply_grads(state.d_opt, d_params, d_loss)
+        _apply_grads(state.d_opt, d_params, d_loss, "d")
 
         # ---- G update, against the updated Ds ----
         rec_s, rand_s = d_img(img_rec), d_img(img_rand)
@@ -134,7 +134,7 @@ def make_layout2im_train_step(state: GANTrainState, cfg: Layout2ImConfig) -> Cal
         aux = cfg.lamb_cls * 0.5 * (ce(o_rec["class_logits"]) + ce(o_rand["class_logits"]))
         g_loss = (cfg.lamb_img_rec * img_rec_l1 + cfg.lamb_kl * kl + cfg.lamb_z_rec * z_rec_l1
                   + adv + aux)
-        _apply_grads(state.g_opt, g_params, g_loss)
+        _apply_grads(state.g_opt, g_params, g_loss, "g")
         state.step += 1
         metrics = {"d_loss": d_loss, "g_loss": g_loss, "img_rec_l1": img_rec_l1, "kl": kl,
                    "z_rec_l1": z_rec_l1, "g_adv": adv}

@@ -766,3 +766,30 @@ def _given2d_step(rank: int, given: dict, two, out_dir: str) -> None:
     if rank == 0:
         torch.save({"metrics": {k: float(v) for k, v in metrics.items()}, **nets},
                    os.path.join(out_dir, f"given2d.{mode}.pt"))
+
+
+# ---- the collectives' spans under 2 ranks ----
+
+def tracing_rank(rank: int, out_dir: str) -> None:
+    """Rank program of ``tests/test_torch_port_tracing.py``: one mixed LostGAN
+    step on this rank's rows with spans on; writes ``<rank>.json``: the
+    number of ``mesh.all_reduce`` spans per ``kind``."""
+    import json
+
+    from layout2img_tpu_torch.parallel import mesh as data_mesh
+    from layout2img_tpu_torch.utils import tracing
+
+    mesh = data_mesh.initialize("cpu")
+    state, cfg = lostgan_state("mixed")
+    tracing.enable(True)
+    try:
+        run_lostgan(state, cfg, {k: mesh.rows(v) for k, v in global_batch().items()}, steps=1)
+    finally:
+        tracing.enable(None)
+    kinds: dict[str, int] = {}
+    for r in tracing.records():
+        if r.name == "mesh.all_reduce":
+            kinds[r.attrs["kind"]] = kinds.get(r.attrs["kind"], 0) + 1
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(kinds, f)
+    data_mesh.shutdown()
