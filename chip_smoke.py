@@ -202,7 +202,17 @@ and shape; ``--phases`` picks some (``rate`` needs ``slice``,
               component's line (G and D forwards, VGG, the step without and
               with VGG, the RoI crops) and its ISLA launches a call (10 for
               G's forward, 10 of each kernel for a step).
-22. the ``{"kernels": [...]}`` line, the card's line, then the result line.
+22. pool   -- the discriminator's 2x2 pool and residual add
+              (``ops/pool.py``, ``csrc/d_pool.cu``) at every downsampling
+              site of the benchmark's cells (COCO b=256: the image, block1-5
+              and 2,048 crops at block_obj5; VG: 3,968 crops), bf16 and f32:
+              the forward against the plain version in f32 rounded once, the
+              backward against ``F.avg_pool2d``'s bit for bit; per site the
+              forward and backward kernels' times (L2 flushed before each
+              launch) beside their byte bounds, the plain version's
+              (``F.avg_pool2d`` and adds) and ``F.avg_pool2d``'s own, then
+              the sums over one D pass.
+23. the ``{"kernels": [...]}`` line, the card's line, then the result line.
 
 fp32 comparisons run with TF32 off in cuDNN and matmul: cuDNN's TF32
 default keeps about three decimal digits.
@@ -230,11 +240,18 @@ ISLA_SHAPES = [(4, 1024, 64), (8, 1024, 64), (8, 1024, 8), (16, 512, 8), (16, 51
 ISLA_SOURCE = "layout2img_tpu_torch/csrc/isla_norm.cu"
 ISLA_REPLACES = "layout2img_tpu/ops/pallas/isla.py:85 (tree of d0260d0^, _isla_kernel_batched)"
 ISLA_BWD_SOURCE = "layout2img_tpu_torch/csrc/isla_norm_bwd.cu"
+POOL_SOURCE = "layout2img_tpu_torch/csrc/d_pool.cu"
+# (site, a's shape, variant: a alone, a + b, a + r) of one D pass in the cells
+POOL_SITES = (("coco.image", (256, 3, 128, 128), "a"), ("coco.block1", (256, 64, 128, 128), "ar"),
+              ("coco.block2", (256, 128, 64, 64), "ab"), ("coco.block3", (256, 256, 32, 32), "ab"),
+              ("coco.block4", (256, 512, 16, 16), "ab"), ("coco.block5", (256, 1024, 8, 8), "ab"),
+              ("coco.block_obj5", (2048, 1024, 8, 8), "ab"),
+              ("vg.block_obj5", (3968, 1024, 8, 8), "ab"))
 ISLA_BWD_REPLACES = ("layout2img_tpu/ops/pallas/isla.py:103 (tree of d0260d0^, _bwd of the "
                      "isla_modulate custom_vjp)")
 PHASES = ("build", "kernel", "kernel_bwd", "bwd_vg", "slice", "train", "rate", "train_rate",
           "train_mixed", "presets", "data", "eval", "special", "export", "conditioning", "ddp",
-          "mesh2d", "shard", "inference", "profile")
+          "mesh2d", "shard", "inference", "profile", "pool")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
 B, O, N_VALID, NUM_CLASSES, CH = 8, 31, 6, 179, 64
@@ -838,6 +855,67 @@ def bwd_vg_phase(reps: int = 50) -> dict:
               f"ms={w_ms:.5f} main_kernel_ms={k_ms:.5f} bound_ms={bound_ms:.5f} "
               f"share_of_bound={bound_ms / w_ms:.3f}")
     return per_forward
+
+
+def pool_phase(reps: int = 50) -> dict:
+    """The D pool kernels at the cells' sites; returns the kernel table's row
+    (bf16 sums over one COCO b=256 D pass)."""
+    import torch
+    import torch.nn.functional as F
+
+    from layout2img_tpu_torch.ops.pool import pool2x2_add, pool2x2_add_plain
+
+    dev = torch.device("cuda")
+    flush = torch.empty(2**28, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1234)
+    totals = {}  # (dtype, cell) -> [fwd, bwd, fwd bound, bwd bound, plain fwd, plain bwd, F fwd]
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).removeprefix("torch.")
+        size = torch.finfo(dtype).bits // 8
+        for site, shape, variant in POOL_SITES:
+            n, c, h, w = shape
+            a = torch.randn(shape, device=dev, generator=g).to(dtype)
+            b = torch.randn(shape, device=dev, generator=g).to(dtype) if "b" in variant else None
+            r = (torch.randn(n, c, h // 2, w // 2, device=dev, generator=g).to(dtype)
+                 if "r" in variant else None)
+            got = pool2x2_add(a, b, r)
+            want = pool2x2_add_plain(*(None if t is None else t.float() for t in (a, b, r)))
+            need(torch.equal(got, want.to(dtype)), f"pool kernel off at {site} {dname}")
+            grad = torch.randn(got.shape, device=dev, generator=g).to(dtype)
+            backward = functools.partial(torch.ops.layout2img_tpu_torch.pool2x2_add_backward, grad)
+            plain_backward = functools.partial(torch.ops.aten.avg_pool2d_backward, grad, a, [2, 2],
+                                               [2, 2], [0, 0], False, True, None)
+            need(torch.equal(backward(), plain_backward()), f"pool backward off at {site} {dname}")
+            k_ms, k_lo, k_hi = time_ms(lambda: pool2x2_add(a, b, r), reps, flush)
+            kb_ms, _, _ = time_ms(backward, reps, flush)
+            p_ms, _, _ = time_ms(lambda: pool2x2_add_plain(a, b, r), reps, flush)
+            n_pooled = 1 + (b is not None)  # the plain backward runs once per pooled input
+            pb_ms, _, _ = time_ms(lambda: [plain_backward() for _ in range(n_pooled)], reps, flush)
+            f_ms, _, _ = time_ms(lambda: F.avg_pool2d(a, 2), reps, flush)
+            # each tensor read or written once: the inputs, r, the output; the
+            # gradient and one full-size result
+            fwd_bytes = size * (n_pooled * a.numel() + (2 if r is not None else 1) * got.numel())
+            bwd_bytes = size * (grad.numel() + a.numel())
+            fb_ms, bb_ms = (1e3 * x / HBM_BYTES_PER_S for x in (fwd_bytes, bwd_bytes))
+            phase("pool", f"{site} {dname} {variant} a={tuple(shape)}: forward_ms={k_ms:.5f} "
+                  f"[{k_lo:.5f}, {k_hi:.5f}] bound_ms={fb_ms:.5f} share={fb_ms / k_ms:.3f} "
+                  f"plain_ms={p_ms:.5f} avg_pool2d_ms={f_ms:.5f} | backward_ms={kb_ms:.5f} "
+                  f"bound_ms={bb_ms:.5f} share={bb_ms / kb_ms:.3f} plain_ms={pb_ms:.5f} "
+                  f"({n_pooled} avg_pool2d_backward)")
+            acc = totals.setdefault((dname, site.split(".")[0]), [0.0] * 7)
+            for j, v in enumerate((k_ms, kb_ms, fb_ms, bb_ms, p_ms, pb_ms, f_ms)):
+                acc[j] += v
+    for (dname, cell), (k, kb, fb, bb, p, pb, f) in totals.items():
+        what = "one COCO b=256 D pass" if cell == "coco" else "VG block_obj5"
+        phase("pool", f"{dname} {cell} sums ({what}): "
+              f"forward_ms={k:.5f} backward_ms={kb:.5f} bound_ms={fb + bb:.5f} "
+              f"share_of_bound={(fb + bb) / (k + kb):.3f} plain_forward_ms={p:.5f} "
+              f"plain_backward_ms={pb:.5f} avg_pool2d_ms={f:.5f}")
+    k, kb, fb, bb, p, pb, f = totals[("bfloat16", "coco")]
+    return {"name": "pool2x2_add", "route": "cuda", "source": POOL_SOURCE, "replaces": None,
+            "launches": None, "ms": k, "bwd_ms": kb, "bound_ms": fb, "bwd_bound_ms": bb,
+            "bound_by": "bytes", "plain_ms": p, "plain_bwd_ms": pb, "library_ms": f,
+            "timed_as": "sum over the 7 sites of one COCO b=256 D pass, bf16, L2 flushed"}
 
 
 def sync(dev) -> None:
@@ -3812,6 +3890,9 @@ def main(argv=None) -> int:
             for row, n in zip((fwd, bwd, fin), profile_phase(card)):
                 row["launches_profile"] = n
                 row["launches"] = (row.get("launches") or 0) + n
+        if "pool" in phases:
+            begin("pool")
+            rows["pool2x2_add"] = pool_phase(args.reps)
     except SmokeFailure as e:
         phase("FAIL", str(e))
         return 1

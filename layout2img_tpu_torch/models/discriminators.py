@@ -106,6 +106,13 @@ class LayoutDiscriminator(nn.Module):
             self.l_y_app = SNEmbed(num_classes, ch * 8)
             self.app = SNDense(ch * 16, 1)
 
+    @property
+    def pool_sites(self) -> int:
+        """2x2 pool calls (``ops/pool.py::pool2x2_add``, kernel launches on the
+        card) per forward: two in a downsampling first block, one in each other
+        downsampling block (each runs once a forward)."""
+        return sum(getattr(m, "pool_sites", 0) for m in self.children())
+
     def _trunk(self, images: torch.Tensor, rows: bool) -> tuple[list[torch.Tensor], list[bool]]:
         """Every trunk block's output, in order, and whether each is a row
         shard (``rows``: the images are)."""

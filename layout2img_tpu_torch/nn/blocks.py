@@ -6,7 +6,8 @@ learnable 1x1 shortcut, and an optional per-stage semantic-mask head (a
 plain conv stack, or the PSP module). Submodule names are the reference's
 (``b1``, ``b2``, ``conv1``, ``conv2``, ``c_sc``, ``conv_mask.*``).
 ``DiscOptimizedBlock`` and ``DiscResBlock``: the discriminator's SN ResBlocks
-with 2x2 average-pool downsampling.
+with 2x2 average-pool downsampling, each pool and the residual add after it
+one ``ops/pool.py::pool2x2_add`` call (a kernel launch on the card).
 
 As in the JAX package, the PSP head's Dropout2d is switched by the
 ``deterministic`` argument (default True, dropout off), not by train/eval.
@@ -31,6 +32,7 @@ from layout2img_tpu_torch.nn.layers import Conv2d
 from layout2img_tpu_torch.nn.norms import SpatialAdaptiveNorm, SyncBatchNorm
 from layout2img_tpu_torch.nn.spectral import SNConv
 from layout2img_tpu_torch.ops.interp import adaptive_avg_pool2d, resize_bilinear
+from layout2img_tpu_torch.ops.pool import pool2x2_add
 from layout2img_tpu_torch.parallel import mesh as data_mesh
 
 
@@ -137,21 +139,25 @@ class GenResBlock(nn.Module):
 
 
 class DiscOptimizedBlock(nn.Module):
-    """First D block (reference ``rcnn_discriminator_app.py:294-314``)."""
+    """First D block (reference ``rcnn_discriminator_app.py:294-314``).
+
+    Downsampling, it pools the image for the 1x1 shortcut conv (which then
+    runs at a quarter of the pixels), and pools its output with that conv's
+    result added: two ``pool2x2_add`` calls (``pool_sites``)."""
 
     def __init__(self, in_ch: int, out_ch: int, downsample: bool = True):
         super().__init__()
         self.downsample = downsample
+        self.pool_sites = 2 if downsample else 0
         self.conv1 = SNConv(in_ch, out_ch, 3)
         self.conv2 = SNConv(out_ch, out_ch, 3)
         self.c_sc = SNConv(in_ch, out_ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(F.relu(self.conv1(x)))
-        sc = x
         if self.downsample:
-            y, sc = F.avg_pool2d(y, 2), F.avg_pool2d(x, 2)
-        return y + self.c_sc(sc)
+            return pool2x2_add(y, r=self.c_sc(pool2x2_add(x.contiguous())))
+        return y + self.c_sc(x)
 
 
 class DiscResBlock(nn.Module):
@@ -160,17 +166,13 @@ class DiscResBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, downsample: bool = False):
         super().__init__()
         self.downsample = downsample
+        self.pool_sites = 1 if downsample else 0  # output and shortcut pooled and summed at once
         self.conv1 = SNConv(in_ch, out_ch, 3)
         self.conv2 = SNConv(out_ch, out_ch, 3)
         self.c_sc = SNConv(in_ch, out_ch, 1) if (in_ch != out_ch or downsample) else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv2(F.relu(self.conv1(F.relu(x))))
-        if self.downsample:
-            y = F.avg_pool2d(y, 2)
-        sc = x
-        if self.c_sc is not None:
-            sc = self.c_sc(sc)
-            if self.downsample:
-                sc = F.avg_pool2d(sc, 2)
-        return y + sc
+        if self.downsample:  # c_sc is there
+            return pool2x2_add(y, self.c_sc(x))
+        return y + (x if self.c_sc is None else self.c_sc(x))

@@ -7,9 +7,9 @@ flags, so an edit rebuilds and an unchanged tree reuses the library; the
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
 beside it as ``<name>-<hash>.log``.
 
-nvcc runs at the first launch of a kernel (``library``), or for every source
-at once in ``build_all``, never at import: the package imports where there
-is no CUDA toolkit. Every C entry point returns ``cudaGetLastError()`` after
+nvcc runs for every source not built yet, all at once (``build_all``), at
+the first launch of any kernel (``library``) or when asked, never at import:
+the package imports where there is no CUDA toolkit. Every C entry point returns ``cudaGetLastError()`` after
 its launch, and ``check`` raises when that is not 0.
 """
 
@@ -86,9 +86,10 @@ def build_all() -> dict[str, float]:
 
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``; where it is not built yet,
+    every source not built yet is built first, in parallel."""
     if not library_path(name).exists():
-        _Build(name).wait()
+        build_all()
     lib = ctypes.CDLL(str(library_path(name)))
     lib.l2i_error_string.argtypes = [ctypes.c_int]
     lib.l2i_error_string.restype = ctypes.c_char_p
